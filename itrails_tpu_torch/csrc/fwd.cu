@@ -26,8 +26,8 @@
 //   the product; for M <= 32 each lane keeps its column of a in
 //   registers, above that a sits in shared memory (M=133: 87 KB);
 // * the emission row is a direct gather from the transposed table
-//   bt = bfull^T (625, 32*S), which stays in L1/L2 (67.5 KB at M=27,
-//   332 KB at M=133); the next column's row is requested one step ahead;
+//   bt = bfull^T (625, 32*S), which stays in L1/L2 (80 KB at M=27,
+//   400 KB at M=133); the next column's row is requested one step ahead;
 // * tokens arrive 32 columns per coalesced warp load, one chunk ahead,
 //   and reach the lanes by shuffle;
 // * the normalizer is a warp shuffle reduction; the per-window log-sum is

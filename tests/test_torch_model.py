@@ -3,8 +3,9 @@ JAX package, on the CPU.
 
 Tolerances: the goldens at the JAX tests' own (joint rtol 1e-7, model rtol
 1e-6, tests/test_joint.py and tests/test_model.py); the JAX builder at
-rtol 1e-9, both in f64 (the only differences are summation order and the
-two packages' f64 matrix exponentials).
+rtol 1e-9, both in f64 (the differences are summation order, the two
+packages' f64 matrix exponentials and transcendentals, and their
+amplification by cancellation in the closed-form emission integrals).
 """
 
 import jax.numpy as jnp
