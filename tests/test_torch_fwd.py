@@ -117,6 +117,30 @@ def test_port_decoders_match_hmm_goldens(tag):
             ref, rtol=1e-10)
 
 
+def test_cpu_calls_run_the_plain_version_and_count_no_launch():
+    from itrails_tpu_torch.hmm import cuda_fwd
+
+    a, bfull, pi = _random_model(5)
+    tok = torch.as_tensor(_tokens(4, 9))
+    before = cuda_fwd.forward_fused.launches
+    got = cuda_fwd.forward_fused(*_torch(a, bfull, pi), tok)
+    want = cuda_fwd.forward_fused_plain(*_torch(a, bfull, pi), tok)
+    assert cuda_fwd.forward_fused.launches == before
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_kernel_build_needs_the_cuda_toolkit(monkeypatch, tmp_path):
+    """Without nvcc the build raises; nothing falls back to another path."""
+    from itrails_tpu_torch.hmm import cuda_fwd
+
+    monkeypatch.setattr(cuda_fwd, "BUILD_DIR", tmp_path)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_fwd.build()
+
+
 def test_invalid_token_gives_non_finite_loglik():
     from itrails_tpu_torch.hmm import cuda_fwd
 
