@@ -146,7 +146,7 @@ def prepare_optimize_setup(config):
     else:
         print("Warning: 't_upper' not found in parameter definition. "
               "Calculating from 't_3' and 'N_ABC'.")
-        deep = float(cutpoints_abc(n_int_ABC, 1.0)[-2])
+        deep = float(cutpoints_abc(n_int_ABC, 1.0, device="cpu")[-2])
 
         def t_upper_from(t3, n_abc):
             return t3 - deep * n_abc

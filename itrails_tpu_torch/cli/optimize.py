@@ -49,8 +49,9 @@ def main(argv=None):
                              "settings.maxiter config key; default 10000).")
     parser.add_argument("--precision", choices=["float32", "float64"],
                         default="float64",
-                        help="Dtype of the decode tables on the CPU path; "
-                             "the card's kernel computes in float32.")
+                        help="Dtype of the decode with --device cpu. On "
+                             "the card K1 always computes in float32 and "
+                             "this flag has no effect.")
     parser.add_argument("--grad", action="store_true",
                         help="Exact-gradient L-BFGS-B (not ported yet: "
                              "exits with an error).")

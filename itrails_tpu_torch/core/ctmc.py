@@ -325,7 +325,7 @@ class JointMatrixFn:
     state's stationary mass (reference get_trans_emiss.py:159-168 consumes
     it the same way)."""
 
-    def __init__(self, plan: Plan, dtype=torch.float64, device="cpu"):
+    def __init__(self, plan: Plan, dtype=torch.float64, *, device):
         self.plan = plan
         self.dtype = dtype
         self.device = torch.device(device)

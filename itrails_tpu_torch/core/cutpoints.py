@@ -12,8 +12,8 @@ import torch
 __all__ = ["cutpoints_ab", "cutpoints_abc"]
 
 
-def cutpoints_ab(n_int_AB: int, t_AB, coal_AB, dtype=torch.float64,
-                 device="cpu"):
+def cutpoints_ab(n_int_AB: int, t_AB, coal_AB, dtype=torch.float64, *,
+                 device):
     """Quantiles i/n of a rate-``coal_AB`` exponential truncated to
     [0, t_AB] (reference cutpoints.py:5-28).  Shape (n_int_AB + 1,);
     first entry 0, last exactly t_AB."""
@@ -29,8 +29,8 @@ def cutpoints_ab(n_int_AB: int, t_AB, coal_AB, dtype=torch.float64,
     return torch.cat([cut[:-1], t_AB.reshape(1)])
 
 
-def cutpoints_abc(n_int_ABC: int, coal_ABC, dtype=torch.float64,
-                  device="cpu"):
+def cutpoints_abc(n_int_ABC: int, coal_ABC, dtype=torch.float64, *,
+                  device):
     """Quantiles i/n of a rate-``coal_ABC`` exponential (reference
     cutpoints.py:29-45).  Shape (n_int_ABC + 1,).  The reference's last
     entry is +inf (the unbounded deepest interval); here it is 0.0 — every

@@ -324,7 +324,7 @@ class EmissionMatrixFn:
     species permuted onto branches, then permute the emission axes back
     (:871-875, :897-899)."""
 
-    def __init__(self, n_int_AB: int, n_int_ABC: int, device="cpu"):
+    def __init__(self, n_int_AB: int, n_int_ABC: int, *, device):
         self.n_int_AB = n_int_AB
         self.n_int_ABC = n_int_ABC
         self.device = torch.device(device)

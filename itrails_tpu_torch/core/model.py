@@ -46,8 +46,8 @@ def build_model_fn(n_int_AB: int, n_int_ABC: int, dtype=torch.float64,
     once, here."""
     dev = resolve_device(device)
     plan = build_plan(n_int_AB, n_int_ABC)
-    joint_fn = JointMatrixFn(plan, dtype, dev)
-    emission_fn = EmissionMatrixFn(n_int_AB, n_int_ABC, dev)
+    joint_fn = JointMatrixFn(plan, dtype, device=dev)
+    emission_fn = EmissionMatrixFn(n_int_AB, n_int_ABC, device=dev)
 
     def fn(t_A, t_B, t_C, t_2, t_upper, t_out, N_AB, N_ABC, r):
         n_ref = N_ABC
@@ -62,8 +62,8 @@ def build_model_fn(n_int_AB: int, n_int_ABC: int, dtype=torch.float64,
         coal_abc = 1.0
         mu_scale = n_ref * (4.0 / 3.0)
 
-        cut_AB = cutpoints_ab(n_int_AB, t_ab, coal_ab, dtype, dev)
-        cut_ABC = cutpoints_abc(n_int_ABC, coal_abc, dtype, dev)
+        cut_AB = cutpoints_ab(n_int_AB, t_ab, coal_ab, dtype, device=dev)
+        cut_ABC = cutpoints_abc(n_int_ABC, coal_abc, dtype, device=dev)
         joint = joint_fn(
             coal_A=coal_ab, coal_B=coal_ab, coal_C=coal_ab, coal_AB=coal_ab,
             coal_ABC=coal_abc, rho_A=rho, rho_B=rho, rho_C=rho, rho_AB=rho,

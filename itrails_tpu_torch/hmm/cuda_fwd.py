@@ -31,7 +31,7 @@ import torch
 
 from itrails_tpu_torch.data.tokens import N_TOKENS, PAD_TOKEN
 
-__all__ = ["build", "forward_fused", "forward_fused_plain",
+__all__ = ["build", "emission_rows", "forward_fused", "forward_fused_plain",
            "forward_loglik_fused"]
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "fwd.cu"
@@ -91,10 +91,11 @@ def _library():
     return _lib
 
 
-def _emission_rows(bt, tok):
+def emission_rows(bt, tok):
     """Rows ``bt[tok]`` of a (625, M) table for a (W,) token vector: ones
     for PAD (a no-op step) and zeros for a token outside the alphabet (the
-    kernel's contract: such a window's loglik is not finite)."""
+    kernel's contract: such a window's loglik is not finite).  Every
+    decoder of the port reads its emissions through this one rule."""
     tok = tok.long()
     rows = bt[tok.clamp(0, N_TOKENS - 1)]
     valid = ((tok >= 0) & (tok < N_TOKENS))[:, None]
@@ -105,7 +106,7 @@ def _emission_rows(bt, tok):
 def _step0(bfull, pi, tok0):
     """Column 0, outside the kernel as in pallas_fwd.py:368-378: the
     normalized ``pi * e`` and its log-norm."""
-    al0 = pi[None, :] * _emission_rows(bfull.T, tok0)
+    al0 = pi[None, :] * emission_rows(bfull.T, tok0)
     s0 = al0.sum(dim=1)
     return al0 / s0[:, None], torch.log(s0)
 
@@ -118,7 +119,7 @@ def forward_fused_plain(a, bfull, pi, tokens):
     al, ll = _step0(bfull, pi, tokens[:, 0])
     for t in range(1, tokens.shape[1]):
         tok = tokens[:, t]
-        nx = (al @ a) * _emission_rows(bt, tok)
+        nx = (al @ a) * emission_rows(bt, tok)
         s = nx.sum(dim=1)
         pad = tok == PAD_TOKEN
         al = torch.where(pad[:, None], al, nx / s[:, None])

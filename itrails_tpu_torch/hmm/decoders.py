@@ -27,25 +27,19 @@ def emission_table(b, agg):
     return b @ torch.as_tensor(agg, dtype=b.dtype, device=b.device).T
 
 
-def _gather_emis(bfull, tokens):
-    """Per-step emission rows for a (W,) token vector -> (W, M); padded
-    positions get all-ones (no-op)."""
-    tokens = tokens.long()
-    e = bfull.T[tokens.clamp(min=0)]
-    return torch.where((tokens == PAD_TOKEN)[:, None], torch.ones_like(e), e)
-
-
 def forward(a, bfull, pi, tokens):
     """Log-space forward pass over a (W, T) token batch.
 
     Returns ``(alpha_T, logliks)``: the final (W, M) log state vector and the
     per-window log-likelihoods (W,).
     """
-    alpha = torch.log(pi[None, :] * _gather_emis(bfull, tokens[:, 0]))
+    bt = bfull.T
+    alpha = torch.log(pi[None, :] * cuda_fwd.emission_rows(bt, tokens[:, 0]))
     for t in range(1, tokens.shape[1]):
         tok = tokens[:, t]
         x = alpha.max(dim=1, keepdim=True).values
-        new = torch.log((torch.exp(alpha - x) @ a) * _gather_emis(bfull, tok)) + x
+        new = torch.log((torch.exp(alpha - x) @ a)
+                        * cuda_fwd.emission_rows(bt, tok)) + x
         alpha = torch.where((tok == PAD_TOKEN)[:, None], alpha, new)
     x = alpha.max(dim=1).values
     loglik = torch.log(torch.exp(alpha - x[:, None]).sum(dim=1)) + x
@@ -60,9 +54,6 @@ def forward_loglik(a, bfull, pi, tokens):
 def forward_loglik_fast(a, bfull, pi, tokens):
     """Total log-likelihood (f64 scalar tensor) of a (W, T) token batch.
 
-    On the card this is kernel K1 in float32 (the tables are cast here);
+    On the card this is kernel K1, which takes contiguous float32 tables;
     on the CPU it is K1's plain version in the tables' dtype."""
-    if tokens.device.type == "cuda":
-        a, bfull, pi = (x.to(torch.float32).contiguous()
-                        for x in (a, bfull, pi))
     return cuda_fwd.forward_loglik_fused(a, bfull, pi, tokens)

@@ -59,7 +59,10 @@ class LoglikEngine:
     def __init__(self, v_lst, n_int_AB, n_int_ABC, dtype="float64",
                  device="cuda", long_threshold=windows.LONG_BLOCK_THRESHOLD):
         self.device = resolve_device(device)
-        self.dtype = getattr(torch, dtype)
+        # the decode's dtype, set here only: K1 computes in float32 on the
+        # card; ``dtype`` picks the plain version's dtype on the CPU
+        self.dtype = (torch.float32 if self.device.type == "cuda"
+                      else getattr(torch, dtype))
         lengths = [len(v) for v in v_lst]
         for v in v_lst:
             v = np.asarray(v)
@@ -79,7 +82,7 @@ class LoglikEngine:
         self.n_long = len(long_idx)
         self._builder = build_model_fn(n_int_AB, n_int_ABC, torch.float64,
                                        self.device)
-        self._agg = torch.as_tensor(aggregation_matrix(), dtype=self.dtype,
+        self._agg = torch.as_tensor(aggregation_matrix(), dtype=torch.float64,
                                     device=self.device)
         self.seconds = {"build": 0.0, "decode": 0.0}  # summed over evals
 
@@ -95,8 +98,8 @@ class LoglikEngine:
         """Total log-likelihood at the resolved, mu-scaled ``params``."""
         t0 = time.perf_counter()
         a, b, pi, _, _ = self._builder(*(params[k] for k in _BUILD_ARGS))
-        a, b, pi = (x.to(self.dtype) for x in (a, b, pi))
         bfull = decoders.emission_table(b, self._agg)
+        a, bfull, pi = (x.to(self.dtype).contiguous() for x in (a, bfull, pi))
         self._sync()
         t1 = time.perf_counter()
         total = torch.zeros((), dtype=torch.float64, device=self.device)

@@ -151,6 +151,27 @@ def test_invalid_token_gives_non_finite_loglik():
     assert not np.isfinite(float(ll[0])) and np.isfinite(float(ll[1]))
 
 
+@pytest.mark.parametrize("decoder", ["forward_fused", "forward"])
+def test_decoders_share_one_pad_and_invalid_token_rule(decoder):
+    """K1's plain version and the log-space reference read emissions
+    through one rule: a PAD column is a no-op, a token outside the alphabet
+    makes the window's loglik non-finite."""
+    from itrails_tpu_torch.hmm import cuda_fwd, decoders
+
+    fn = getattr(cuda_fwd if decoder == "forward_fused" else decoders, decoder)
+    a, bfull, pi = _torch(*_random_model(6, seed=4))
+    rng = np.random.default_rng(5)
+    clean = rng.integers(0, 625, size=8).astype(np.int32)
+    tok = np.full((3, 11), -1, np.int32)
+    tok[0, :8] = clean
+    tok[1, [0, 1, 3, 4, 6, 7, 8, 10]] = clean
+    tok[2, :8] = clean
+    tok[2, 5] = 625
+    _, ll = fn(a, bfull, pi, torch.as_tensor(tok))
+    np.testing.assert_allclose(float(ll[1]), float(ll[0]), rtol=1e-12)
+    assert np.isfinite(float(ll[0])) and not np.isfinite(float(ll[2]))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

@@ -83,6 +83,24 @@ def test_entry_points_refuse_cpu_without_being_asked(entry, no_card, tmp_path):
         call()
 
 
+@pytest.mark.parametrize("builder", ["joint", "emission", "cutpoints_ab",
+                                     "cutpoints_abc"])
+def test_builders_take_no_default_device(builder):
+    """The builders under build_model_fn name their device: none of them
+    runs on the CPU because the caller left the device out."""
+    from itrails_tpu_torch.core import ctmc, cutpoints, emissions
+    from itrails_tpu_torch.core.schedule import build_plan
+
+    calls = {
+        "joint": lambda: ctmc.JointMatrixFn(build_plan(1, 2)),
+        "emission": lambda: emissions.EmissionMatrixFn(1, 2),
+        "cutpoints_ab": lambda: cutpoints.cutpoints_ab(2, 0.8, 1.3),
+        "cutpoints_abc": lambda: cutpoints.cutpoints_abc(2, 0.7),
+    }
+    with pytest.raises(TypeError, match="device"):
+        calls[builder]()
+
+
 @pytest.mark.gpu
 def test_k1_wrapper_raises_on_inputs_it_does_not_take(cuda_device):
     from itrails_tpu_torch.hmm import cuda_fwd

@@ -50,14 +50,14 @@ def test_cutpoints_match_reference():
 
     g = load_golden("cutpoints.npz")
     for n in (1, 2, 3, 5):
-        np.testing.assert_allclose(cutpoints_ab(n, 0.8, 1.3).numpy(),
+        np.testing.assert_allclose(cutpoints_ab(n, 0.8, 1.3, device=CPU).numpy(),
                                    g[f"cut_AB_{n}"], rtol=1e-12)
-        mine = cutpoints_abc(n, 0.7).numpy()
+        mine = cutpoints_abc(n, 0.7, device=CPU).numpy()
         np.testing.assert_allclose(mine[:-1], g[f"cut_ABC_{n}"][:-1],
                                    rtol=1e-12)
         assert mine[-1] == 0.0
     for coal, t_ab in ((15.7, 2.43), (50.0, 5.0), (1000.0, 1.0)):
-        cut = cutpoints_ab(4, t_ab, coal).numpy()
+        cut = cutpoints_ab(4, t_ab, coal, device=CPU).numpy()
         assert np.isfinite(cut).all() and cut[0] == 0.0 and cut[-1] == t_ab
 
 
@@ -96,7 +96,7 @@ def test_joint_matches_reference(tag, params, n_ab, n_abc):
     coal = n_ref / params["N_AB"]
     rho = n_ref * params["r"]
     plan = build_plan(n_ab, n_abc)
-    joint = JointMatrixFn(plan, torch.float64, CPU)(
+    joint = JointMatrixFn(plan, torch.float64, device=CPU)(
         coal_A=coal, coal_B=coal, coal_C=coal, coal_AB=coal, coal_ABC=1.0,
         rho_A=rho, rho_B=rho, rho_C=rho, rho_AB=rho, rho_ABC=rho,
         t_A=params["t_A"] / n_ref, t_B=params["t_B"] / n_ref,
