@@ -8,18 +8,23 @@ Run from the root of a checkout, with no arguments:
 Phases, one result line each (every line starts with the card's name and
 power limit):
 
-1. build: compile kernel K1 (``itrails_tpu_torch/csrc/fwd.cu``) with nvcc
-   for sm_90a and print its registers and shared memory;
-2. K1 against its plain PyTorch version (f64, on the card) on the 3x3
-   model (M=27, 4096 x 8192 tokens) and the 7x7 model (M=133, 1024 x
-   2048), built on the card, with ragged PAD tails and all-PAD windows;
-   time, launches and the card's least time for the same work;
-3. the main path: ``itrails_tpu_torch.cli.optimize.main`` (Nelder-Mead)
-   at 3x3 on a MAF simulated from the 3x3 model (1.32 M columns: 100
-   blocks of 10 kb and one 320 kb block), with K1's launch counter reset
-   just before and read just after;
-4. genome scale: ``LoglikEngine`` on 33.5 M simulated columns (4096 x
-   8192), seconds per evaluation split into build and decode.
+1. build: compile kernels K1 (``itrails_tpu_torch/csrc/fwd.cu``) and K2
+   (``csrc/grad.cu``) with nvcc for sm_90a, both at once, and print their
+   registers, shared memory and spills;
+2. K1 and then K2 against their plain PyTorch versions (f64, on the card)
+   on the 3x3 model (M=27, 4096 x 8192 tokens) and the 7x7 model (M=133,
+   1024 x 2048), built on the card, with ragged PAD tails and all-PAD
+   windows; time, launches and the card's least time for the same work;
+3. the value-only path: ``itrails_tpu_torch.cli.optimize.main --no-grad``
+   (Nelder-Mead) at 3x3 on a MAF simulated from the 3x3 model (1.32 M
+   columns: 100 blocks of 10 kb and one 320 kb block), with K1's launch
+   counter reset just before and read just after;
+4. the main path, the CLI's default: exact-gradient L-BFGS-B on the same
+   MAF, with K2's call counter reset just before and read just after,
+   and evaluation 0's value and gradient held against the plain version;
+5. genome scale: ``LoglikEngine`` on 33.5 M simulated columns (4096 x
+   8192), seconds per evaluation split into build and decode for the
+   value, and into build, decode (K2) and build backward for the gradient.
 
 Any failure exits non-zero.  The last two lines are the kernels' JSON
 record and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -45,12 +50,14 @@ SPECIES = ["hg38", "panTro5", "gorGor5", "ponAbe2"]
 # mu-scaled start point of examples/example_config.yaml (t_1 case)
 START = dict(t_1=2.4e-3, t_2=4e-4, t_upper=7.450693855e-3, N_AB=5e-4,
              N_ABC=5e-4, r=1.0)
-# phase 2: (label, n_int_AB, n_int_ABC, windows, columns)
+# phase 2: (label, n_int_AB, n_int_ABC, windows, columns), for K1 and K2
 K1_SHAPES = [("3x3", 3, 3, 4096, 8192), ("7x7", 7, 7, 1024, 2048)]
 # phase 3: short blocks, their length, and how many more such rows are
 # joined into the one long block (32 x 10 kb = 320 kb > 262,144)
 CLI_LAYOUT = (100, 10_000, 32)
-# phase 4: windows x columns
+# phase 4: columns of the long block's prefix that K2 is held against
+LONG_PREFIX = 65_536
+# phase 5: windows x columns
 GENOME = (4096, 8192)
 
 
@@ -96,7 +103,8 @@ def start_params(n_ab, n_abc, **change):
 
 def build_tables(n_ab, n_abc, dev, d=None):
     """(a, bfull, pi, b) in f64 on ``dev`` from the port's own builder, at
-    the resolved parameters ``d`` (default: START)."""
+    the resolved parameters ``d`` (default: START; floats, or 0-d tensors
+    that require grad)."""
     from itrails_tpu_torch.core.model import build_model_fn
     from itrails_tpu_torch.data.tokens import aggregation_matrix
     from itrails_tpu_torch.hmm import decoders
@@ -124,19 +132,72 @@ def k1_bound_ms(m, tokens):
                                          else "bytes")
 
 
+def k2_bound_ms(m, tokens):
+    """Least time of K2's work on these inputs, counted as for K1: per
+    non-PAD column 1..T-1 four M x M products (the forward, its recompute,
+    a v and the dA outer product, 8*M^2) and 14*M for the emission
+    products, the normalizers and the dB row; bytes: the inputs read once
+    (a, bfull, pi, tokens) and the outputs written once (the per-window
+    loglik, dA, dbfull, dpi)."""
+    w, t = tokens.shape
+    steps = int((tokens[:, 1:] >= 0).sum())
+    ops = steps * (8 * m * m + 14 * m)
+    nbytes = 4 * (2 * (m * m + 625 * m + m) + w * t + w)
+    by_ops = ops / PEAK_F32_FLOPS
+    by_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes
+                                         else "bytes")
+
+
+def padded_tokens(dev, w, t, seed):
+    """(W, T) uniform tokens with ragged PAD tails and all-PAD windows."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tok = torch.randint(0, 625, (w, t), generator=gen, device=dev,
+                        dtype=torch.int32)
+    lengths = torch.randint(1, t + 1, (w,), generator=gen, device=dev)
+    ragged = torch.arange(w, device=dev) % 3 == 1  # every third window
+    cut = torch.arange(t, device=dev)[None, :] >= lengths[:, None]
+    tok[ragged[:, None] & cut] = -1
+    tok[::97] = -1  # all-PAD windows
+    return tok
+
+
+def grad_errors(got, ref):
+    """Largest |got - ref| / (|ref| + max|ref|) per gradient, the measure
+    of the rule rtol 2e-3 with atol 2e-3 * max|ref|
+    (tests/test_pallas_grad.py), and whether each meets it."""
+    errs, ok = [], True
+    for g, r in zip(got, ref):
+        g, r = g.double(), r.double()
+        scale = float(r.abs().max())
+        errs.append(float(((g - r).abs() / (r.abs() + scale)).max()))
+        ok = ok and bool(((g - r).abs() <= 2e-3 * r.abs() + 2e-3 * scale).all())
+    return errs, ok
+
+
 def phase_build(card):
-    from itrails_tpu_torch.hmm import cuda_fwd
+    from concurrent.futures import ThreadPoolExecutor
+
+    from itrails_tpu_torch.hmm import _build, cuda_fwd, cuda_grad
 
     t0 = time.perf_counter()
-    path, log = cuda_fwd.build()
+    with ThreadPoolExecutor(2) as pool:  # one nvcc for each source, at once
+        jobs = [(name, pool.submit(mod.build))
+                for name, mod in (("K1", cuda_fwd), ("K2", cuda_grad))]
+        built = [(name, job.result()) for name, job in jobs]
     seconds = time.perf_counter() - t0
-    usage = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-    for ln in usage:
-        print(f"{card} | build | {ln}")
-    check(path.exists(), "K1 did not build")
-    print(f"{card} | phase 1 build: K1 {os.path.relpath(path, ROOT)} "
-          f"in {seconds:.2f} s (nvcc {' '.join(cuda_fwd.NVCC_FLAGS)})")
+    for name, (path, log) in built:
+        usage = [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+        for ln in usage:
+            print(f"{card} | build {name} | {ln}")
+        check(path.exists(), f"{name} did not build")
+    libs = ", ".join(f"{name} {os.path.relpath(path, ROOT)}"
+                     for name, (path, _) in built)
+    print(f"{card} | phase 1 build: {libs} in {seconds:.2f} s "
+          f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
 
 
 def phase_k1(card, dev, m_label, n_ab, n_abc, w, t, seed, reps):
@@ -147,14 +208,7 @@ def phase_k1(card, dev, m_label, n_ab, n_abc, w, t, seed, reps):
 
     a, bfull, pi, _ = build_tables(n_ab, n_abc, dev)
     m = a.shape[0]
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    tok = torch.randint(0, 625, (w, t), generator=gen, device=dev,
-                        dtype=torch.int32)
-    lengths = torch.randint(1, t + 1, (w,), generator=gen, device=dev)
-    ragged = torch.arange(w, device=dev) % 3 == 1  # every third window
-    cut = torch.arange(t, device=dev)[None, :] >= lengths[:, None]
-    tok[ragged[:, None] & cut] = -1
-    tok[::97] = -1  # all-PAD windows
+    tok = padded_tokens(dev, w, t, seed)
     a32, b32, p32 = (x.float().contiguous() for x in (a, bfull, pi))
 
     al, ll = cuda_fwd.forward_fused(a32, b32, p32, tok)
@@ -191,8 +245,64 @@ def phase_k1(card, dev, m_label, n_ab, n_abc, w, t, seed, reps):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def phase_k2(card, dev, m_label, n_ab, n_abc, w, t, seed, reps, k1_ms):
+    """K2 against its plain version (f64) on the card; returns its record."""
+    import torch
+
+    from itrails_tpu_torch.hmm import cuda_grad
+
+    a, bfull, pi, _ = build_tables(n_ab, n_abc, dev)
+    m = a.shape[0]
+    tok = padded_tokens(dev, w, t, seed)
+    a32, b32, p32 = (x.float().contiguous() for x in (a, bfull, pi))
+
+    ll, grads = cuda_grad.loglik_and_grads_fused(a32, b32, p32, tok)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ll_ref, grads_ref = cuda_grad.loglik_and_grads_plain(a, bfull, pi, tok)
+    torch.cuda.synchronize()
+    plain_once_s = time.perf_counter() - t0
+    total_rel = float((ll - ll_ref).abs() / ll_ref.abs())
+    errs, ok = grad_errors(grads, grads_ref)
+    check(all(bool(torch.isfinite(g).all()) for g in grads)
+          and tuple(grads[1].shape) == (m, 625),
+          f"K2 {m_label}: non-finite or misshapen gradient")
+    check(total_rel <= 1e-6, f"K2 {m_label}: total off by {total_rel:.3g}")
+    check(ok, f"K2 {m_label}: gradients off by {errs} (rtol 2e-3)")
+    again = cuda_grad.loglik_and_grads_fused(a32, b32, p32, tok)
+    same = bool(torch.equal(again[0], ll)) and all(
+        torch.equal(x, y) for x, y in zip(again[1], grads))
+    check(same, f"K2 {m_label}: two calls on the same inputs differ")
+
+    before = cuda_grad.loglik_and_grads_fused.calls
+    ms = cuda_ms(lambda: cuda_grad.loglik_and_grads_fused(a32, b32, p32, tok),
+                 reps)
+    check(cuda_grad.loglik_and_grads_fused.calls - before == reps + 1,
+          f"K2 {m_label}: timed calls did not all launch the kernel")
+    plain_ms = cuda_ms(
+        lambda: cuda_grad.loglik_and_grads_plain(a, bfull, pi, tok), 1)
+    bound_ms, bound_by = k2_bound_ms(m, tok)
+    max_abs = max(float((g.double() - r).abs().max())
+                  for g, r in zip(grads, grads_ref))
+    max_ref = max(float(r.abs().max()) for r in grads_ref)
+    print(f"{card} | phase 2 K2 {m_label} M={m} W={w} T={t}: total rel err "
+          f"{total_rel:.3g} (rtol 1e-6: f64 sum of f32 windows), dA / dbfull "
+          f"/ dpi max err {errs[0]:.3g} / {errs[1]:.3g} / {errs[2]:.3g} of "
+          f"|ref| + max|ref| (rtol 2e-3, atol 2e-3 max|ref|: f32 normalizers "
+          f"over T steps, tests/test_pallas_grad.py), bitwise equal on a "
+          f"second call, max abs err {max_abs:.4g} on gradients up to "
+          f"{max_ref:.4g}; K2 {ms:.4f} ms (mean of {reps}, two kernels a "
+          f"call), {ms / k1_ms:.2f}x K1's {k1_ms:.4f} ms, plain f64 "
+          f"{plain_ms:.1f} ms (no yardstick; first call {plain_once_s:.1f} s),"
+          f" bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of "
+          f"bound")
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def phase_cli(card, dev, workdir):
-    """The main path: the optimize CLI, Nelder-Mead, at 3x3."""
+    """The value-only path: the optimize CLI, Nelder-Mead, at 3x3.  Returns
+    its launches of K1 and what phase 4 reuses."""
     import torch
     import yaml
 
@@ -284,15 +394,125 @@ def phase_cli(card, dev, workdir):
           f"{n_eval} x {per_eval}, best loglik {best_ll:.6f}, eval 0 vs plain "
           f"f64 rel err {rel:.3g} (rtol 1e-6); K1 per evaluation: "
           f"{', '.join(per_batch)}; simulation + MAF {prep_s:.1f} s")
-    return launches
+    return launches, {"config": config, "v_lst": v_lst, "per_eval": per_eval,
+                      "ref": ref}
+
+
+def phase_cli_grad(card, dev, workdir, cli):
+    """The main path: the optimize CLI on its default, exact-gradient
+    L-BFGS-B, at 3x3 on phase 3's MAF."""
+    import torch
+    import yaml
+
+    from itrails_tpu_torch.cli.common import prepare_optimize_setup
+    from itrails_tpu_torch.cli.optimize import main
+    from itrails_tpu_torch.hmm import cuda_fwd, cuda_grad
+    from itrails_tpu_torch.optim.cases import resolve_times
+    from itrails_tpu_torch.optim.optimizer import LoglikEngine
+
+    config = dict(cli["config"])
+    config["settings"] = {k: v for k, v in config["settings"].items()
+                          if k != "method"}  # the default applies
+    cfg_path = os.path.join(workdir, "config_grad.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(config, f)
+    out = os.path.join(workdir, "run_grad", "sim")
+    cuda_grad.loglik_and_grads_fused.calls = 0
+    cuda_fwd.forward_fused.launches = 0
+    t0 = time.perf_counter()
+    main([cfg_path, "--output", out, "--maxiter", "3"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    calls = cuda_grad.loglik_and_grads_fused.calls
+    k1_launches = cuda_fwd.forward_fused.launches
+
+    rows = np.loadtxt(out + ".optimization_history.csv", delimiter=",",
+                      skiprows=1, ndmin=2)
+    with open(out + ".best_model.yaml") as f:
+        best = yaml.safe_load(f)
+    n_eval = rows.shape[0]
+    check(n_eval >= 2 and rows.shape[1] == 6 + 3, "grad history has the wrong shape")
+    check(np.array_equal(rows[:, 0], np.arange(n_eval)),
+          "grad history is not one row per evaluation")
+    check(np.isfinite(rows).all(), "grad history holds non-finite values")
+    best_ll = best["results"]["log_likelihood"]
+    check(np.isfinite(best_ll) and best_ll == rows[:, -2].max(),
+          "grad best-model loglik is not the best history row")
+    check(calls == n_eval * cli["per_eval"],
+          f"K2 called {calls} times for {n_eval} evaluations x "
+          f"{cli['per_eval']} batches")
+    check(k1_launches == 0, f"the gradient path launched K1 {k1_launches} times")
+    rel = abs(rows[0, -2] - cli["ref"]) / abs(cli["ref"])
+    check(rel <= 1e-6, f"grad evaluation 0 off the f64 reference by {rel:.3g}")
+
+    # evaluation 0's gradient: the engine's (K2 on every batch) against the
+    # plain f64 version chained through the same build; the plain version
+    # over the 320 kb block would take minutes of Python steps, so that
+    # block keeps K2 on both sides and is held against the plain version
+    # on a prefix below
+    setup = prepare_optimize_setup(config)
+    names, x0 = setup["optim_variables"], np.asarray(setup["optim_list"])
+    engine = LoglikEngine(cli["v_lst"], 3, 3, device=dev)
+    ll_k2, g_k2 = engine.loglik_and_grad_fn(
+        names, setup["fixed_dict"], setup["case"], resolve_times)(x0)
+    rel_again = abs(ll_k2 - rows[0, -2]) / abs(rows[0, -2])
+    check(rel_again <= 1e-12, "the engine's evaluation 0 differs from the CLI's")
+    vec = torch.tensor(x0, dtype=torch.float64, device=dev, requires_grad=True)
+    d = resolve_times(setup["case"],
+                      {**setup["fixed_dict"], **dict(zip(names, vec.unbind()))})
+    a, bfull, pi, _ = build_tables(3, 3, dev, d)
+    sums = [torch.zeros_like(x) for x in (a, bfull, pi)]
+    for i, tok in enumerate(engine.batches):
+        if i < engine.n_buckets:
+            _, grads = cuda_grad.loglik_and_grads_plain(
+                a.detach(), bfull.detach(), pi.detach(), tok)
+        else:
+            _, grads = cuda_grad.loglik_and_grads_fused(
+                *(x.detach().float().contiguous() for x in (a, bfull, pi)), tok)
+        for acc, g in zip(sums, grads):
+            acc += g.double()
+    (g_ref,) = torch.autograd.grad((a, bfull, pi), vec, sums)
+    g_ref = g_ref.cpu().numpy()
+    g_rel = np.abs(g_k2 - g_ref) / np.abs(g_ref)
+    check(bool((g_rel <= 2e-3).all()),
+          f"evaluation 0's gradient off the plain version by {g_rel}")
+
+    long_tok = engine.batches[-1][:, :LONG_PREFIX].contiguous()
+    tables = [x.detach() for x in (a, bfull, pi)]
+    ll_l, grads_l = cuda_grad.loglik_and_grads_fused(
+        *(x.float().contiguous() for x in tables), long_tok)
+    ll_lr, grads_lr = cuda_grad.loglik_and_grads_plain(*tables, long_tok)
+    long_rel = float((ll_l - ll_lr).abs() / ll_lr.abs())
+    long_errs, long_ok = grad_errors(grads_l, grads_lr)
+    check(long_rel <= 1e-6 and long_ok,
+          f"K2 on the long block's prefix off by {long_rel:.3g}, {long_errs}")
+    per_batch = []  # K2 ms at each of the main path's batch shapes
+    tables32 = [x.float().contiguous() for x in tables]
+    for tok in engine.batches:
+        ms = cuda_ms(lambda: cuda_grad.loglik_and_grads_fused(*tables32, tok), 1)
+        per_batch.append(f"{tuple(tok.shape)} {ms:.2f} ms")
+    print(f"{card} | phase 4 optimize CLI 3x3 default (L-BFGS-B, exact "
+          f"gradients): {n_eval} evaluations in {cli_s:.2f} s "
+          f"({cli_s / n_eval:.3f} s/eval), K2 calls {calls} = {n_eval} x "
+          f"{cli['per_eval']}, K1 launches {k1_launches}, best loglik "
+          f"{best_ll:.6f}; eval 0 vs plain f64 loglik rel err {rel:.3g} "
+          f"(rtol 1e-6), gradient rel err per parameter "
+          f"{', '.join(f'{e:.2g}' for e in g_rel)} (rtol 2e-3; plain f64 on "
+          f"the bucket, K2 on the 320 kb block on both sides); K2 on the "
+          f"long block's first {LONG_PREFIX} columns vs plain f64: loglik "
+          f"rel err {long_rel:.3g}, dA / dbfull / dpi "
+          f"{' / '.join(f'{e:.3g}' for e in long_errs)} (rtol 2e-3); K2 per "
+          f"evaluation: {', '.join(per_batch)}")
+    return calls
 
 
 def phase_genome(card, dev):
-    """LoglikEngine on 33.5 M simulated columns."""
+    """LoglikEngine on 33.5 M simulated columns: value, then gradient."""
     import torch
 
     from itrails_tpu_torch.data.simulate import simulate_token_batch
-    from itrails_tpu_torch.hmm import cuda_fwd
+    from itrails_tpu_torch.hmm import cuda_fwd, cuda_grad
+    from itrails_tpu_torch.optim.cases import resolve_times
     from itrails_tpu_torch.optim.optimizer import LoglikEngine
 
     t0 = time.perf_counter()
@@ -316,11 +536,37 @@ def phase_genome(card, dev):
           f"genome phase: K1 launched {launches} times for {n_evals} evals")
     build_s = engine.seconds["build"] / n_evals
     decode_s = engine.seconds["decode"] / n_evals
-    print(f"{card} | phase 4 LoglikEngine 3x3 on {engine.n_columns} columns "
+    print(f"{card} | phase 5 LoglikEngine 3x3 on {engine.n_columns} columns "
           f"({GENOME[0]} x {GENOME[1]}): {build_s + decode_s:.4f} s/eval = build "
           f"{build_s:.4f} s + decode {decode_s:.4f} s (mean of {n_evals}, "
           f"first included), K1 launches {launches}, loglik {values[0]:.3f}; "
           f"simulation + packing {prep_s:.1f} s")
+
+    names = list(START)
+    fixed = {"n_int_AB": 3, "n_int_ABC": 3}
+    vg = engine.loglik_and_grad_fn(names, fixed, frozenset(["t_1"]),
+                                   resolve_times)
+    engine.seconds = dict.fromkeys(engine.seconds, 0.0)
+    cuda_grad.loglik_and_grads_fused.calls = 0
+    grad_values = []
+    for k in range(n_evals):
+        x = np.array([START[n] for n in names])
+        x[0] *= 1 + 0.01 * k
+        ll, g = vg(x)
+        check(np.isfinite(ll) and np.isfinite(g).all(),
+              "genome-scale gradient is not finite")
+        grad_values.append(ll)
+    calls = cuda_grad.loglik_and_grads_fused.calls
+    check(calls == n_evals * len(engine.batches),
+          f"genome phase: K2 called {calls} times for {n_evals} evals")
+    rel = abs(grad_values[0] - values[0]) / abs(values[0])
+    check(rel <= 1e-6, f"K2's genome-scale value off K1's by {rel:.3g}")
+    split = {k: v / n_evals for k, v in engine.seconds.items()}
+    print(f"{card} | phase 5 gradient on the same columns: "
+          f"{sum(split.values()):.4f} s/eval = build {split['build']:.4f} s + "
+          f"decode (K2) {split['decode']:.4f} s + build backward "
+          f"{split['build_backward']:.4f} s (mean of {n_evals}, first "
+          f"included), K2 calls {calls}, value vs K1's rel {rel:.3g}")
 
 
 def main():
@@ -342,20 +588,34 @@ def main():
     phase_build(card)
     k1 = [phase_k1(card, dev, *shape, seed=seed, reps=10)
           for seed, shape in enumerate(K1_SHAPES)]
+    k2 = [phase_k2(card, dev, *shape, seed=seed, reps=10, k1_ms=rec["ms"])
+          for seed, (shape, rec) in enumerate(zip(K1_SHAPES, k1))]
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
-        launches = phase_cli(card, dev, work)
+        k1_launches, cli = phase_cli(card, dev, work)
+        k2_calls = phase_cli_grad(card, dev, work, cli)
     phase_genome(card, dev)
     print(f"{card} | all phases passed in {time.perf_counter() - t_start:.1f} s")
 
+    # each record at the genome-scale 3x3 shape of phase 2; launches from
+    # the CLI run of its own path (K1: phase 3, K2: phase 4; a K2 call is
+    # two kernel launches)
     record = {"kernels": [{
         "name": "k1_forward",
         "route": "cuda",
         "source": "itrails_tpu_torch/csrc/fwd.cu",
         "replaces": "itrails_tpu/hmm/pallas_fwd.py:327",
-        "launches": launches,
+        "launches": k1_launches,
         "library_ms": None,  # no single PyTorch call computes this function
-        **k1[0],  # at the genome-scale 3x3 shape of phase 4
+        **k1[0],
+    }, {
+        "name": "k2_loglik_and_grads",
+        "route": "cuda",
+        "source": "itrails_tpu_torch/csrc/grad.cu",
+        "replaces": "itrails_tpu/hmm/pallas_grad.py:203",
+        "launches": k2_calls,
+        "library_ms": None,  # no single PyTorch call computes this function
+        **k2[0],
     }]}
     print(json.dumps(record))
     print(card)

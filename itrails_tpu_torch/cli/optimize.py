@@ -4,15 +4,15 @@ CLI-compatible with the reference's ``itrails-optimize``
 (workflow_optimize.py) and with ``itrails-tpu-optimize``: same YAML schema,
 same artifacts (.starting_params.yaml, .best_model.yaml checkpoint,
 .optimization_history.csv, .optimizer_state.yaml), same parameter-case
-rules.  This port runs the value-only algorithms (Nelder-Mead, or scipy's
-finite-difference L-BFGS-B); it runs on the card unless ``--device cpu``
-is given.
+rules.  The default, as in ``itrails-tpu-optimize``, is L-BFGS-B with
+exact gradients (kernel K2 on the card); ``--no-grad`` or
+``settings.method: Nelder-Mead`` runs the reference's derivative-free
+algorithm.  It runs on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import os
-import sys
 
 import yaml
 
@@ -31,11 +31,6 @@ from itrails_tpu_torch.config import (
 from itrails_tpu_torch.data.maf import maf_tokens
 from itrails_tpu_torch.optim.optimizer import optimizer
 
-GRADIENT_NOT_PORTED = (
-    "error: exact-gradient optimize is not ported yet; pass `--no-grad` or "
-    "set `settings.method: Nelder-Mead`"
-)
-
 
 def main(argv=None):
     parser = standard_parser(
@@ -50,11 +45,15 @@ def main(argv=None):
     parser.add_argument("--precision", choices=["float32", "float64"],
                         default="float64",
                         help="Dtype of the decode with --device cpu. On "
-                             "the card K1 always computes in float32 and "
-                             "this flag has no effect.")
+                             "the card K1 and K2 always compute in float32 "
+                             "and this flag has no effect.")
     parser.add_argument("--grad", action="store_true",
-                        help="Exact-gradient L-BFGS-B (not ported yet: "
-                             "exits with an error).")
+                        help="Force the exact-gradient path (L-BFGS-B on "
+                             "the gradient of the decode, kernel K2, "
+                             "carried back through the model build by "
+                             "autograd).  This is already the default "
+                             "unless the config sets settings.method: "
+                             "Nelder-Mead explicitly.")
     parser.add_argument("--no-grad", action="store_true",
                         help="Run the reference's derivative-free algorithm "
                              "(settings.method, default Nelder-Mead).")
@@ -75,8 +74,6 @@ def main(argv=None):
     maf_path, user_output, output_dir, output_prefix = resolve_io(config, args)
     setup = prepare_optimize_setup(config)
     use_grad, method = resolve_optim_method(setup, args.grad, args.no_grad)
-    if use_grad:
-        sys.exit(GRADIENT_NOT_PORTED)
     settings = dict(setup["settings"])
     if settings.get("obs_mode", "standard") != "standard":
         raise ValueError("optimize takes only obs_mode 'standard' (4 species)")
@@ -131,7 +128,8 @@ def main(argv=None):
     print(f"{len(v_lst)} alignment blocks, "
           f"{sum(len(v) for v in v_lst)} columns.")
 
-    print(f"Running optimization ({method}) on {device}...")
+    print(f"Running optimization ({method}"
+          f"{', exact gradients' if use_grad else ''}) on {device}...")
     optimizer(
         optim_variables=setup["optim_variables"],
         optim_list=setup["optim_list"],
@@ -146,6 +144,7 @@ def main(argv=None):
         dtype=args.precision,
         header=not resume,
         device=device,
+        use_grad=use_grad,
     )
     print(
         f"Optimization complete. Results saved to "

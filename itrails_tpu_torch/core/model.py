@@ -41,9 +41,11 @@ def build_model_fn(n_int_AB: int, n_int_ABC: int, dtype=torch.float64,
 
     Parameters arrive mu-scaled exactly as in the reference workflows
     (times and Ne multiplied by the mutation rate, r divided by it;
-    workflow_optimize.py:387-398), as Python floats.  Everything that
-    depends only on ``(n_int_AB, n_int_ABC)`` is compiled and uploaded
-    once, here."""
+    workflow_optimize.py:387-398), as Python floats or as 0-d float64
+    tensors on ``device``; ``fn`` is plain tensor arithmetic, so torch
+    autograd differentiates the tables in tensors that require grad.
+    Everything that depends only on ``(n_int_AB, n_int_ABC)`` is compiled
+    and uploaded once, here."""
     dev = resolve_device(device)
     plan = build_plan(n_int_AB, n_int_ABC)
     joint_fn = JointMatrixFn(plan, dtype, device=dev)

@@ -12,65 +12,30 @@ exact table lookups and a full-f32 transition product.  The source note in
 tensors on the CPU.  It never moves a CUDA tensor to the plain version: a
 CUDA input that the kernel does not take raises.
 
-The kernel is compiled with ``nvcc`` for ``sm_90a`` at its first use into
-``build/itrails_tpu_torch/`` at the root of the checkout (the file name
-carries a hash of the source, so an edited source is never served by a
-stale library) and loaded with ``ctypes``.
+The kernel is compiled with ``nvcc`` for ``sm_90a`` at its first use
+(``hmm/_build.py``) and loaded with ``ctypes``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
 from itrails_tpu_torch.data.tokens import N_TOKENS, PAD_TOKEN
+from itrails_tpu_torch.hmm._build import BUILD_DIR, CSRC, compile_library
 
-__all__ = ["build", "emission_rows", "forward_fused", "forward_fused_plain",
-           "forward_loglik_fused"]
+__all__ = ["build", "check_inputs", "column0", "emission_rows",
+           "forward_fused", "forward_fused_plain", "forward_loglik_fused"]
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "fwd.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "itrails_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
+_SRC = CSRC / "fwd.cu"
 _lib = None
 
 
-def _nvcc() -> str:
-    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc"), shutil.which("nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: building kernel K1 needs the CUDA "
-                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
-
-
-def build() -> tuple[Path, str]:
-    """Compile ``csrc/fwd.cu`` unless this source was built before.
-
-    Returns the shared library's path and the compiler's ``-Xptxas -v``
-    report (registers, shared memory and spills of every instantiation),
-    which is kept beside the library."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = BUILD_DIR / f"libk1_fwd_{tag}.so"
-    log = lib.with_suffix(".log")
-    if not lib.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SRC}:\n{proc.stderr}")
-        log.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib)
-    return lib, log.read_text() if log.exists() else ""
+def build():
+    """Compile ``csrc/fwd.cu`` unless this source was built before; see
+    :func:`itrails_tpu_torch.hmm._build.compile_library`."""
+    return compile_library(_SRC, "libk1_fwd", BUILD_DIR, "kernel K1")
 
 
 def _library():
@@ -103,12 +68,43 @@ def emission_rows(bt, tok):
     return torch.where(valid, rows, pad.to(rows.dtype))
 
 
-def _step0(bfull, pi, tok0):
-    """Column 0, outside the kernel as in pallas_fwd.py:368-378: the
-    normalized ``pi * e`` and its log-norm."""
-    al0 = pi[None, :] * emission_rows(bfull.T, tok0)
+def column0(bfull, pi, tok0):
+    """Column 0, outside the kernels as in pallas_fwd.py:368-378 and
+    pallas_grad.py:225-236: its emission rows e0 (W, M), the normalized
+    ``pi * e0`` and its normalizer s0 (W,)."""
+    e0 = emission_rows(bfull.T, tok0)
+    al0 = pi[None, :] * e0
     s0 = al0.sum(dim=1)
-    return al0 / s0[:, None], torch.log(s0)
+    return e0, al0 / s0[:, None], s0
+
+
+def check_inputs(name, a, bfull, pi, tokens, max_states):
+    """Raise unless the tables and tokens are what a kernel takes: a (W, T)
+    int32 token batch and float32 tables a (M, M), bfull (M, 625), pi (M,)
+    with 1 <= M <= ``max_states``, all contiguous on the tokens' device."""
+    dev = tokens.device
+    if tokens.dim() != 2 or tokens.dtype != torch.int32:
+        raise ValueError(f"{name}: tokens must be a (W, T) int32 tensor, "
+                         f"got {tuple(tokens.shape)} {tokens.dtype}")
+    m = a.shape[0]
+    expect = {"a": (a, (m, m)), "bfull": (bfull, (m, N_TOKENS)),
+              "pi": (pi, (m,))}
+    for label, (x, shape) in expect.items():
+        if x.device != dev or x.dtype != torch.float32:
+            raise ValueError(f"{name}: {label} must be float32 on {dev}, "
+                             f"got {x.dtype} on {x.device}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name}: {label} must have shape {shape}, "
+                             f"got {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous")
+    if not tokens.is_contiguous():
+        raise ValueError(f"{name}: tokens must be contiguous")
+    if not 1 <= m <= max_states:
+        raise ValueError(f"{name}: the kernel takes 1..{max_states} states, "
+                         f"got {m}")
+    if tokens.shape[0] == 0 or tokens.shape[1] == 0:
+        raise ValueError(f"{name}: empty token batch")
 
 
 def forward_fused_plain(a, bfull, pi, tokens):
@@ -116,7 +112,8 @@ def forward_fused_plain(a, bfull, pi, tokens):
     (W, M) @ (M, M) product per column.  The CPU path and the reference the
     kernel is held against on the card."""
     bt = bfull.T
-    al, ll = _step0(bfull, pi, tokens[:, 0])
+    _, al, s0 = column0(bfull, pi, tokens[:, 0])
+    ll = torch.log(s0)
     for t in range(1, tokens.shape[1]):
         tok = tokens[:, t]
         nx = (al @ a) * emission_rows(bt, tok)
@@ -148,33 +145,14 @@ def forward_fused(a, bfull, pi, tokens):
     if tokens.device.type != "cuda":
         raise ValueError(f"forward_fused: unsupported device {tokens.device}")
     lib = _library()
+    check_inputs("forward_fused", a, bfull, pi, tokens, lib.k1_max_states())
     dev = tokens.device
-    if tokens.dim() != 2 or tokens.dtype != torch.int32:
-        raise ValueError("forward_fused: tokens must be a (W, T) int32 tensor, "
-                         f"got {tuple(tokens.shape)} {tokens.dtype}")
     w, t_len = tokens.shape
     m = a.shape[0]
-    expect = {"a": (a, (m, m)), "bfull": (bfull, (m, N_TOKENS)),
-              "pi": (pi, (m,))}
-    for name, (x, shape) in expect.items():
-        if x.device != dev or x.dtype != torch.float32:
-            raise ValueError(f"forward_fused: {name} must be float32 on {dev}, "
-                             f"got {x.dtype} on {x.device}")
-        if tuple(x.shape) != shape:
-            raise ValueError(f"forward_fused: {name} must have shape {shape}, "
-                             f"got {tuple(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"forward_fused: {name} must be contiguous")
-    if not tokens.is_contiguous():
-        raise ValueError("forward_fused: tokens must be contiguous")
-    if not 1 <= m <= lib.k1_max_states():
-        raise ValueError(f"forward_fused: K1 takes 1..{lib.k1_max_states()} "
-                         f"states, got {m}")
-    if w == 0 or t_len == 0:
-        raise ValueError("forward_fused: empty token batch")
 
     with torch.cuda.device(dev):
-        al0, ll0 = (x.contiguous() for x in _step0(bfull, pi, tokens[:, 0]))
+        _, al0, s0 = column0(bfull, pi, tokens[:, 0])
+        al0, ll0 = al0.contiguous(), torch.log(s0)
         bt = torch.zeros((N_TOKENS, lib.k1_table_width(m)),
                          dtype=torch.float32, device=dev)
         bt[:, :m] = bfull.T

@@ -130,3 +130,75 @@ def test_engine_rejects_tokens_outside_the_alphabet():
 
     with pytest.raises(ValueError, match="tokens must lie"):
         LoglikEngine([np.array([0, 625], np.int32)], 1, 2, device="cpu")
+
+
+def _grad_case(tag):
+    """(v_lst, n_int_AB, n_int_ABC, variables, x0, fixed): the 1x1 case of
+    tests/test_grad.py:75-102 and a 1x2 case on goldens/synthetic.maf."""
+    from itrails_tpu_torch.data.maf import maf_tokens
+
+    if tag == "1x1":
+        rng = np.random.default_rng(5)
+        v_lst = [rng.integers(0, 625, size=150).astype(np.int32)]
+        fixed = {"n_int_AB": 1, "n_int_ABC": 1, "t_2": 0.0004,
+                 "t_upper": 0.00745069, "N_AB": 0.0005, "r": 1.0}
+        x0 = np.array([0.0024, 0.0005])
+        return v_lst, 1, 1, ["t_1", "N_ABC"], x0, fixed
+    fixed = {"n_int_AB": 1, "n_int_ABC": 2, "t_upper": PARAMS["t_upper"],
+             "N_ABC": PARAMS["N_ABC"]}
+    names = ["t_1", "t_2", "N_AB", "r"]
+    return (maf_tokens(MAF, SPECIES), 1, 2, names,
+            np.array([PARAMS[n] for n in names]), fixed)
+
+
+@pytest.mark.parametrize("tag", ["1x1", "1x2"])
+def test_engine_gradient_matches_jax_engine_and_finite_differences(tag):
+    """Value rtol 1e-10 and gradient rtol 1e-8 against the JAX engine
+    (both f64); the gradient against central differences of the port's
+    own loglik at rtol 1e-3, as tests/test_grad.py:102."""
+    from itrails_tpu.optim.cases import resolve_times as jax_resolve
+    from itrails_tpu.optim.optimizer import LoglikEngine as JaxEngine
+    from itrails_tpu_torch.optim.cases import resolve_times
+    from itrails_tpu_torch.optim.optimizer import LoglikEngine
+
+    v_lst, n_ab, n_abc, names, x0, fixed = _grad_case(tag)
+    case = frozenset(["t_1"])
+    engine = LoglikEngine(v_lst, n_ab, n_abc, device="cpu")
+    ll, g = engine.loglik_and_grad_fn(names, fixed, case, resolve_times)(x0)
+    ll_ref, g_ref = JaxEngine(v_lst, n_ab, n_abc).loglik_and_grad_fn(
+        names, fixed, case, jax_resolve)(x0)
+    assert np.isfinite(g).all()
+    np.testing.assert_allclose(ll, ll_ref, rtol=1e-10)
+    np.testing.assert_allclose(g, g_ref, rtol=1e-8)
+    assert set(engine.seconds) == {"build", "decode", "build_backward"}
+
+    def f(x):
+        return engine.loglik(resolve_times(case, {**fixed, **dict(zip(names, x))}))
+
+    np.testing.assert_allclose(ll, f(x0), rtol=1e-12)
+    for k in range(len(x0)):
+        e = np.zeros(len(x0))
+        e[k] = x0[k] * 1e-6
+        fd = (f(x0 + e) - f(x0 - e)) / (2 * e[k])
+        np.testing.assert_allclose(g[k], fd, rtol=1e-3)
+
+
+def test_long_block_gradient_runs_as_a_one_window_batch():
+    """A block above the threshold takes the gradient path as its own
+    one-window batch and gives the gradient of the bucketed layout."""
+    from itrails_tpu_torch.data.maf import maf_tokens
+    from itrails_tpu_torch.optim.cases import resolve_times
+    from itrails_tpu_torch.optim.optimizer import LoglikEngine
+
+    rng = np.random.default_rng(4)
+    v_lst = maf_tokens(MAF, SPECIES) + [rng.integers(0, 625, size=700)
+                                        .astype(np.int32)]
+    _, _, _, names, x0, fixed = _grad_case("1x2")
+    case = frozenset(["t_1"])
+    split = LoglikEngine(v_lst, 1, 2, device="cpu", long_threshold=500)
+    assert split.n_long == 1 and split.batches[-1].shape == (1, 700)
+    whole = LoglikEngine(v_lst, 1, 2, device="cpu")
+    ll, g = split.loglik_and_grad_fn(names, fixed, case, resolve_times)(x0)
+    ll_w, g_w = whole.loglik_and_grad_fn(names, fixed, case, resolve_times)(x0)
+    np.testing.assert_allclose(ll, ll_w, rtol=1e-12)
+    np.testing.assert_allclose(g, g_w, rtol=1e-10)

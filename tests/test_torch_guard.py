@@ -37,6 +37,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import sys\n"
         "import itrails_tpu_torch, itrails_tpu_torch.cli.optimize\n"
         "import itrails_tpu_torch.convert, itrails_tpu_torch.data.simulate\n"
+        "import itrails_tpu_torch.hmm.grad, itrails_tpu_torch.hmm.cuda_grad\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'itrails_tpu' or m.startswith('itrails_tpu.'))\n"
         "print(','.join(bad))\n"
@@ -56,7 +57,8 @@ def test_port_sources_name_no_jax_import():
     assert offenders == []
 
 
-@pytest.mark.parametrize("entry", ["engine", "builder", "cli", "convert"])
+@pytest.mark.parametrize("entry", ["engine", "builder", "cli", "grad",
+                                   "convert"])
 def test_entry_points_refuse_cpu_without_being_asked(entry, no_card, tmp_path):
     if entry == "engine":
         from itrails_tpu_torch.optim.optimizer import LoglikEngine
@@ -73,6 +75,11 @@ def test_entry_points_refuse_cpu_without_being_asked(entry, no_card, tmp_path):
 
         def call():
             main([str(tmp_path / "missing.yaml"), "--no-grad"])
+    elif entry == "grad":
+        from itrails_tpu_torch.cli.optimize import main
+
+        def call():
+            main([str(tmp_path / "missing.yaml")])  # the default: gradients
     else:
         from itrails_tpu_torch.convert import model_from_numpy
 
@@ -120,3 +127,31 @@ def test_k1_wrapper_raises_on_inputs_it_does_not_take(cuda_device):
     assert cuda_fwd.forward_fused.launches == before
     cuda_fwd.forward_fused(a, bfull, pi, tok)
     assert cuda_fwd.forward_fused.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_k2_wrapper_raises_on_inputs_it_does_not_take(cuda_device):
+    from itrails_tpu_torch.hmm import cuda_grad
+
+    m = 27
+    a = torch.full((m, m), 1.0 / m, device=cuda_device)
+    bfull = torch.full((m, 625), 0.01, device=cuda_device)
+    pi = torch.full((m,), 1.0 / m, device=cuda_device)
+    tok = torch.zeros((2, 5), dtype=torch.int32, device=cuda_device)
+    before = cuda_grad.loglik_and_grads_fused.calls
+    with pytest.raises(ValueError, match="float32"):
+        cuda_grad.loglik_and_grads_fused(a.double(), bfull, pi, tok)
+    with pytest.raises(ValueError, match="int32"):
+        cuda_grad.loglik_and_grads_fused(a, bfull, pi, tok.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_grad.loglik_and_grads_fused(a.T, bfull, pi, tok)
+    with pytest.raises(ValueError, match="states"):
+        big = torch.full((161, 161), 1.0 / 161, device=cuda_device)
+        cuda_grad.loglik_and_grads_fused(
+            big, torch.full((161, 625), 0.01, device=cuda_device),
+            torch.full((161,), 1.0 / 161, device=cuda_device), tok)
+    with pytest.raises(ValueError, match="float32"):
+        cuda_grad.loglik_and_grads_fused(a, bfull, pi.cpu(), tok)
+    assert cuda_grad.loglik_and_grads_fused.calls == before
+    cuda_grad.loglik_and_grads_fused(a, bfull, pi, tok)
+    assert cuda_grad.loglik_and_grads_fused.calls == before + 1

@@ -5,9 +5,11 @@ Tolerances: the goldens at the JAX tests' own (joint rtol 1e-7, model rtol
 1e-6, tests/test_joint.py and tests/test_model.py); the JAX builder at
 rtol 1e-9, both in f64 (the differences are summation order, the two
 packages' f64 matrix exponentials and transcendentals, and their
-amplification by cancellation in the closed-form emission integrals).
+amplification by cancellation in the closed-form emission integrals); the
+build's VJP against ``jax.vjp`` of the JAX builder at rtol 1e-8.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -178,3 +180,25 @@ def test_large_models_match_reference(tag, n):
     np.testing.assert_allclose(model.b.numpy(), g["b"], rtol=1e-5, atol=1e-12)
     joint = model.pi.numpy()[:, None] * model.a.numpy()
     np.testing.assert_allclose(joint, joint.T, rtol=1e-6, atol=1e-14)
+
+
+@pytest.mark.parametrize("n_ab,n_abc", [(1, 1), (1, 2), (3, 3)])
+def test_build_vjp_matches_jax(n_ab, n_abc):
+    """The port's autograd VJP of the f64 build against ``jax.vjp`` of the
+    JAX builder, for the same random cotangents on (a, b, pi)."""
+    from itrails_tpu.core.model import build_model_fn as jax_build_model_fn
+    from itrails_tpu_torch.core.model import build_model_fn
+
+    x = torch.tensor(list(PARAMS.values()), dtype=torch.float64,
+                     requires_grad=True)
+    a, b, pi, _, _ = build_model_fn(n_ab, n_abc, device="cpu")(*x.unbind())
+    rng = np.random.default_rng(n_ab * 10 + n_abc)
+    cot = [rng.standard_normal(tuple(t.shape)) for t in (a, b, pi)]
+    (g,) = torch.autograd.grad((a, b, pi), x, [torch.as_tensor(c) for c in cot])
+
+    jfn = jax_build_model_fn(n_ab, n_abc, "float64", device=None)
+    _, vjp = jax.vjp(lambda v: jfn(*(v[i] for i in range(9)))[:3],
+                     jnp.asarray(list(PARAMS.values())))
+    (g_ref,) = vjp(tuple(jnp.asarray(c) for c in cot))
+    assert np.isfinite(g.numpy()).all()
+    np.testing.assert_allclose(g.numpy(), np.asarray(g_ref), rtol=1e-8)
