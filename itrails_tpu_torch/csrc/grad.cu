@@ -21,13 +21,14 @@
 // wrapper sums the partials over blocks in a fixed order and does column 0.
 //
 // Two launches per call:
-// * k2_forward: one warp per window, the forward recurrence of K1
-//   (csrc/fwd.cu) that also writes alpha at every chunk entry into a
-//   checkpoint (n_chunks, W, 32*S) f32, chunks of kChunk columns;
+// * the forward: K1's kernel (csrc/fwd.cu, included below) instantiated to
+//   also write alpha at every chunk entry into a checkpoint
+//   (n_chunks, W, 32*S) f32, chunks of kChunk columns, so K2's loglik is
+//   K1's to the bit;
 // * k2_backward: one warp per window walks the chunks in reverse.  For each
 //   chunk it recomputes the chunk's alpha rows and their a^T alpha from the
-//   checkpoint into per-warp shared-memory rows, with the same step as the
-//   forward, then sweeps the chunk backwards with beta in registers,
+//   checkpoint into per-warp shared-memory rows, with the forward's own
+//   step, then sweeps the chunk backwards with beta in registers,
 //   writing v / Z and atu * beta / Z rows.  At the chunk's end the block
 //   folds its warps' rows into dA and dB: warp g owns dA rows 4g..4g+3
 //   (mod 4 * kWarps) and every token tok with tok % kWarps == g, so each
@@ -40,35 +41,32 @@
 //   600 ms against 579 ms for one 320,000-column window (chip_smoke.py,
 //   PERF.md).
 //
-// What bounds it on an H100: per non-PAD column a warp does four M x M
-// products (the forward, its recompute, a v and the dA outer product), so
-// about 8 M^2 f32 flops against 4 bytes of token and a few bytes of
-// checkpoint traffic: 33.5 M columns at M = 27 are ~0.2 TFLOP, ~3 ms at
-// 67 TFLOP/s outside the tensor cores, against ~0.4 GB (~0.1 ms) of
-// tokens and checkpoint.  It is bound by f32 FMA issue, and like K1 the
-// recurrence is sequential in t, so its parallelism is across windows; a
-// single long window gets one warp.
+// What bounds it on an H100: per non-PAD column the function needs three
+// M x M products (the forward's a^T alpha, a v and the dA outer product,
+// 6 M^2 f32 flops) against 4 bytes of token traffic: 33.5 M columns at
+// M = 27 are ~0.16 TFLOP, ~2.4 ms at 67 TFLOP/s outside the tensor cores,
+// against ~0.13 GB (~0.04 ms) of tokens.  It is bound by f32 FMA issue.
+// The checkpoint design adds a fourth product, the recompute (8 M^2 done
+// per column) and the checkpoint's traffic (0.27 GB written and read back
+// at M = 27), in exchange for storing alpha once per chunk instead of once
+// per column.  Like K1 the recurrence
+// is sequential in t, so its parallelism is across windows; a single long
+// window gets one warp.
 //
-// Design (simple and exact first): the product forms of K1 (for M <= 32
-// each lane keeps its column and its row of a in registers; above that a
-// sits in shared memory with a padded row stride, so both a^T x and a x
-// read it without bank conflicts); z is clamped at 1e-30 as on the TPU.
+// Design (simple and exact first): the product forms of K1 (Mat: for
+// M <= 32 each lane keeps its column and its row of a in registers; above
+// that a sits in shared memory with a padded row stride, so both a^T x and
+// a x read it without bank conflicts); z is clamped at 1e-30 as on the TPU.
 //
 // Launch contract: the C entry point enqueues on the given stream, does
 // not synchronize, allocates nothing, and returns cudaGetLastError().  The
 // dA and dB partials must be zero on entry.
 
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "fwd.cu"  // K1: forward_kernel, Mat, forward_step and the helpers
 
 namespace {
 
-constexpr int kMaxS = 5;      // states per lane: M <= 160
-constexpr int kTokens = 625;  // alphabet size
-constexpr int kPad = -1;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kFwdWarps = 8;  // windows per block of the forward kernel
+constexpr int kGradMaxS = 5;  // states per lane of K2: M <= 160
 
 // Backward block shape: windows per block and columns per chunk.
 template <int S>
@@ -76,208 +74,6 @@ struct Bwd {
   static constexpr int kWarps = S == 1 ? 8 : 4;
   static constexpr int kChunk = S == 1 ? 16 : 8;
 };
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
-
-// Emission of the lane's states for one token; 0 outside the alphabet, so
-// such a window's loglik becomes -inf instead of reading outside the table.
-template <int S>
-__device__ __forceinline__ void load_emission(float (&e)[S],
-                                              const float* __restrict__ bt,
-                                              int tok, int lane) {
-  const bool ok = static_cast<unsigned>(tok) < static_cast<unsigned>(kTokens);
-  const float* row = bt + static_cast<size_t>(ok ? tok : 0) * (32 * S);
-#pragma unroll
-  for (int k = 0; k < S; ++k) e[k] = ok ? __ldg(row + lane + 32 * k) : 0.f;
-}
-
-// The matrix a as a warp reads it: for S == 1 each lane's column and row in
-// registers, else a (32S, 32S + 1) zero-padded copy in shared memory.
-template <int S>
-struct Mat {
-  static constexpr int MP = 32 * S;
-  static constexpr int LDA = MP + 1;
-  float col[S == 1 ? 32 : 1];  // col[i] = a[i][lane]
-  float row[S == 1 ? 32 : 1];  // row[j] = a[lane][j]
-  const float* s_a;            // s_a[i * LDA + j] = a[i][j]
-  int m4;
-
-  // Fills the registers (S == 1) or the block's shared copy (S > 1); the
-  // caller synchronizes the block before the first product.
-  __device__ __forceinline__ void load(const float* __restrict__ a, float* smem,
-                                       int M, int lane) {
-    m4 = (M + 3) & ~3;
-    if constexpr (S == 1) {
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        col[i] = (i < M && lane < M) ? a[i * M + lane] : 0.f;
-        row[i] = (i < M && lane < M) ? a[lane * M + i] : 0.f;
-      }
-      s_a = nullptr;
-    } else {
-      for (int idx = threadIdx.x; idx < MP * MP; idx += blockDim.x) {
-        const int i = idx / MP, j = idx - (idx / MP) * MP;
-        smem[i * LDA + j] = (i < M && j < M) ? a[i * M + j] : 0.f;
-      }
-      s_a = smem;
-    }
-  }
-
-  // out[k] = (a^T x)_{lane + 32k}; x is a 16-byte aligned shared row of MP
-  // floats that every lane of the warp has written.  The same sums as K1.
-  __device__ __forceinline__ void at_x(float (&out)[S], const float* x,
-                                       int lane) const {
-    if constexpr (S == 1) {
-      float p0 = 0.f, p1 = 0.f, p2 = 0.f, p3 = 0.f;
-#pragma unroll
-      for (int i = 0; i < 32; i += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(x + i);
-        p0 = fmaf(col[i], v.x, p0);
-        p1 = fmaf(col[i + 1], v.y, p1);
-        p2 = fmaf(col[i + 2], v.z, p2);
-        p3 = fmaf(col[i + 3], v.w, p3);
-      }
-      out[0] = (p0 + p1) + (p2 + p3);
-    } else {
-#pragma unroll
-      for (int k = 0; k < S; ++k) out[k] = 0.f;
-      for (int i = 0; i < m4; i += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(x + i);
-        const float* r = s_a + i * LDA + lane;
-#pragma unroll
-        for (int k = 0; k < S; ++k) {
-          out[k] = fmaf(r[32 * k], v.x, out[k]);
-          out[k] = fmaf(r[LDA + 32 * k], v.y, out[k]);
-          out[k] = fmaf(r[2 * LDA + 32 * k], v.z, out[k]);
-          out[k] = fmaf(r[3 * LDA + 32 * k], v.w, out[k]);
-        }
-      }
-    }
-  }
-
-  // out[k] = (a x)_{lane + 32k}, x as for at_x.
-  __device__ __forceinline__ void a_x(float (&out)[S], const float* x,
-                                      int lane) const {
-    if constexpr (S == 1) {
-      float p0 = 0.f, p1 = 0.f, p2 = 0.f, p3 = 0.f;
-#pragma unroll
-      for (int j = 0; j < 32; j += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(x + j);
-        p0 = fmaf(row[j], v.x, p0);
-        p1 = fmaf(row[j + 1], v.y, p1);
-        p2 = fmaf(row[j + 2], v.z, p2);
-        p3 = fmaf(row[j + 3], v.w, p3);
-      }
-      out[0] = (p0 + p1) + (p2 + p3);
-    } else {
-#pragma unroll
-      for (int k = 0; k < S; ++k) out[k] = 0.f;
-      for (int j = 0; j < m4; j += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(x + j);
-#pragma unroll
-        for (int k = 0; k < S; ++k) {
-          const float* r = s_a + (lane + 32 * k) * LDA + j;
-          out[k] = fmaf(r[0], v.x, out[k]);
-          out[k] = fmaf(r[1], v.y, out[k]);
-          out[k] = fmaf(r[2], v.z, out[k]);
-          out[k] = fmaf(r[3], v.w, out[k]);
-        }
-      }
-    }
-  }
-};
-
-// One forward column: reads alpha from the warp's shared row x, returns
-// a^T alpha in atu and the normalized next alpha, and the normalizer.
-// Every lane must have written x before the call.
-template <int S>
-__device__ __forceinline__ float forward_step(const Mat<S>& am,
-                                              const float* x,
-                                              const float (&e)[S],
-                                              float (&atu)[S],
-                                              float (&alpha)[S], int lane) {
-  am.at_x(atu, x, lane);
-  float nx[S];
-  float part = 0.f;
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-    nx[k] = atu[k] * e[k];
-    part += nx[k];
-  }
-  const float s = warp_sum(part);
-#pragma unroll
-  for (int k = 0; k < S; ++k) alpha[k] = nx[k] / s;
-  return s;
-}
-
-template <int S>
-__global__ void __launch_bounds__(kFwdWarps * 32)
-k2_forward_kernel(const float* __restrict__ a,     // (M, M) row-major
-                  const float* __restrict__ bt,    // (625, 32*S), zero pad
-                  const float* __restrict__ al0,   // (W, M) alpha after col 0
-                  const float* __restrict__ ll0,   // (W,) log-norm of col 0
-                  const int* __restrict__ tokens,  // (W, T), PAD = -1
-                  float* __restrict__ chk,         // (n_chunks, W, 32*S)
-                  float* __restrict__ ll_out,      // (W,)
-                  int W, int T, int M) {
-  constexpr int MP = 32 * S;
-  constexpr int TC = Bwd<S>::kChunk;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* s_al = smem + (S > 1 ? MP * Mat<S>::LDA : 0);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  Mat<S> am;
-  am.load(a, smem, M, lane);
-  __syncthreads();
-  const int w = blockIdx.x * kFwdWarps + warp;
-  if (w >= W) return;  // after the only block-wide barrier
-
-  float* x = s_al + warp * MP;
-  float alpha[S];
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-    const int j = lane + 32 * k;
-    alpha[k] = j < M ? al0[static_cast<size_t>(w) * M + j] : 0.f;
-  }
-  const int* row = tokens + static_cast<size_t>(w) * T;
-  int tok = T > 1 ? __ldg(row + 1) : kPad;
-  float e[S];
-  load_emission<S>(e, bt, tok, lane);
-  float ll = ll0[w];
-  float comp = 0.f;  // Kahan compensation of ll
-
-  for (int t = 1; t < T; ++t) {
-    const int tok_n = t + 1 < T ? __ldg(row + t + 1) : kPad;
-    float e_n[S];
-    load_emission<S>(e_n, bt, tok_n, lane);  // consumed next step
-    if ((t - 1) % TC == 0) {  // chunk entry: the carry before column t
-      float* c = chk + (static_cast<size_t>((t - 1) / TC) * W + w) * MP;
-#pragma unroll
-      for (int k = 0; k < S; ++k) c[lane + 32 * k] = alpha[k];
-    }
-    if (tok != kPad) {  // uniform across the warp: one window per warp
-      __syncwarp();  // every lane has read the previous row
-#pragma unroll
-      for (int k = 0; k < S; ++k) x[lane + 32 * k] = alpha[k];
-      __syncwarp();
-      float atu[S];
-      const float s = forward_step<S>(am, x, e, atu, alpha, lane);
-      const float y = logf(s) - comp;
-      const float sum = ll + y;
-      comp = (sum - ll) - y;
-      ll = sum;
-    }
-    tok = tok_n;
-#pragma unroll
-    for (int k = 0; k < S; ++k) e[k] = e_n[k];
-  }
-  if (lane == 0) ll_out[w] = ll;
-}
 
 template <int S>
 __global__ void __launch_bounds__(Bwd<S>::kWarps * 32)
@@ -431,12 +227,6 @@ k2_backward_kernel(const float* __restrict__ a,     // (M, M) row-major
 }
 
 template <int S>
-size_t forward_smem() {
-  return static_cast<size_t>((S > 1 ? 32 * S * Mat<S>::LDA : 0) +
-                             kFwdWarps * 32 * S) * sizeof(float);
-}
-
-template <int S>
 size_t backward_smem() {
   constexpr int MP = 32 * S;
   constexpr int NW = Bwd<S>::kWarps;
@@ -445,26 +235,21 @@ size_t backward_smem() {
                              3 * NW * TC * MP + NW * TC) * sizeof(float);
 }
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 template <int S>
-int launch(const float* a, const float* bt, const float* al0, const float* ll0,
-           const int* tokens, float* chk, float* ll_out, float* beta0,
-           float* da_part, float* db_part, int W, int T, int M,
-           cudaStream_t stream) {
+int launch_k2(const float* a, const float* bt, const float* al0,
+              const float* ll0, const int* tokens, float* chk, float* ll_out,
+              float* beta0, float* da_part, float* db_part, int W, int T,
+              int M, cudaStream_t stream) {
   const size_t fsm = forward_smem<S>();
   const size_t bsm = backward_smem<S>();
-  cudaError_t err = allow_smem(k2_forward_kernel<S>, fsm);
+  constexpr int TC = Bwd<S>::kChunk;
+  cudaError_t err = allow_smem(forward_kernel<S, TC>, fsm);
   if (err == cudaSuccess) err = allow_smem(k2_backward_kernel<S>, bsm);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_chunks = (T - 1 + Bwd<S>::kChunk - 1) / Bwd<S>::kChunk;
-  k2_forward_kernel<S><<<(W + kFwdWarps - 1) / kFwdWarps, kFwdWarps * 32, fsm,
-                         stream>>>(a, bt, al0, ll0, tokens, chk, ll_out, W, T, M);
+  const int n_chunks = (T - 1 + TC - 1) / TC;
+  forward_kernel<S, TC><<<(W + kFwdWarps - 1) / kFwdWarps, kFwdWarps * 32, fsm,
+                          stream>>>(a, bt, al0, ll0, tokens, nullptr, ll_out,
+                                    chk, W, T, M);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   constexpr int NW = Bwd<S>::kWarps;
@@ -481,7 +266,7 @@ extern "C" {
 // emission table, the checkpoint, beta0 and the partials use it.
 int k2_table_width(int M) { return 32 * ((M + 31) / 32); }
 
-int k2_max_states() { return 32 * kMaxS; }
+int k2_max_states() { return 32 * kGradMaxS; }
 
 // Columns per chunk of the checkpoint for M states.
 int k2_chunk(int M) {
@@ -501,15 +286,15 @@ int k2_loglik_and_grads(const float* a, const float* bt, const float* al0,
                         const float* ll0, const int* tokens, float* chk,
                         float* ll_out, float* beta0, float* da_part,
                         float* db_part, int W, int T, int M, void* stream) {
-  if (W < 1 || T < 1 || M < 1 || M > 32 * kMaxS)
+  if (W < 1 || T < 1 || M < 1 || M > 32 * kGradMaxS)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((M + 31) / 32) {
-    case 1: return launch<1>(a, bt, al0, ll0, tokens, chk, ll_out, beta0, da_part, db_part, W, T, M, s);
-    case 2: return launch<2>(a, bt, al0, ll0, tokens, chk, ll_out, beta0, da_part, db_part, W, T, M, s);
-    case 3: return launch<3>(a, bt, al0, ll0, tokens, chk, ll_out, beta0, da_part, db_part, W, T, M, s);
-    case 4: return launch<4>(a, bt, al0, ll0, tokens, chk, ll_out, beta0, da_part, db_part, W, T, M, s);
-    default: return launch<5>(a, bt, al0, ll0, tokens, chk, ll_out, beta0, da_part, db_part, W, T, M, s);
+    case 1: return launch_k2<1>(a, bt, al0, ll0, tokens, chk, ll_out, beta0, da_part, db_part, W, T, M, s);
+    case 2: return launch_k2<2>(a, bt, al0, ll0, tokens, chk, ll_out, beta0, da_part, db_part, W, T, M, s);
+    case 3: return launch_k2<3>(a, bt, al0, ll0, tokens, chk, ll_out, beta0, da_part, db_part, W, T, M, s);
+    case 4: return launch_k2<4>(a, bt, al0, ll0, tokens, chk, ll_out, beta0, da_part, db_part, W, T, M, s);
+    default: return launch_k2<5>(a, bt, al0, ll0, tokens, chk, ll_out, beta0, da_part, db_part, W, T, M, s);
   }
 }
 

@@ -3,8 +3,9 @@
 Each kernel source is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, at its first use, into
 ``build/itrails_tpu_torch/`` at the root of the checkout.  The file name
-carries a hash of the source and the flags, so an edited source is never
-served by a stale library.  The libraries are loaded with ``ctypes``.
+carries a hash of every source in ``csrc/`` (``grad.cu`` includes
+``fwd.cu``) and the flags, so an edited source is never served by a stale
+library.  The libraries are loaded with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ def compile_library(src: Path, stem: str, build_dir: Path,
     Returns the library's path and the compiler's ``-Xptxas -v`` report
     (registers, shared memory and spills of every instantiation), which is
     kept beside the library.  ``what`` names the kernel in errors."""
-    text = src.read_bytes()
+    text = b"".join(p.read_bytes() for p in sorted(src.parent.glob("*.cu")))
     tag = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     lib = build_dir / f"{stem}_{tag}.so"
     log = lib.with_suffix(".log")

@@ -15,13 +15,7 @@ import torch
 
 from itrails_tpu_torch.hmm import cuda_grad
 
-__all__ = ["LoglikFn", "decode_value_and_grad"]
-
-
-def decode_value_and_grad(a, bfull, pi, tokens):
-    """``(total loglik, (dA, dbfull, dpi))`` of a (W, T) token batch: K2 on
-    a CUDA tensor, its plain version on a CPU tensor."""
-    return cuda_grad.loglik_and_grads_fused(a, bfull, pi, tokens)
+__all__ = ["LoglikFn"]
 
 
 class LoglikFn(torch.autograd.Function):
@@ -37,7 +31,7 @@ class LoglikFn(torch.autograd.Function):
         total = torch.zeros((), dtype=torch.float64, device=a.device)
         grads = [torch.zeros_like(x, dtype=torch.float64) for x in (a, bfull, pi)]
         for tokens in batches:
-            value, parts = decode_value_and_grad(a, bfull, pi, tokens)
+            value, parts = cuda_grad.loglik_and_grads_fused(a, bfull, pi, tokens)
             total = total + value
             for acc, g in zip(grads, parts):
                 acc += g

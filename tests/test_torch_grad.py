@@ -12,7 +12,9 @@ Tolerances:
   gradients rtol 2e-3 with atol 2e-3 * max|ref| (f32 rounding of the
   per-step normalizers, in another order on each side).
 * On the card, K2 in f32 against its plain version in f64: total rtol
-  1e-6 (an f64 sum of f32 windows), gradients as against the Pallas kernel.
+  1e-6 (an f64 sum of f32 windows), gradients rtol 2e-3 on every entry with
+  no absolute slack (each entry is a sum of non-negative terms, so none
+  cancels).
 """
 
 import jax
@@ -199,8 +201,9 @@ def test_k2_matches_plain_on_the_card(cuda_device, m, w, t):
     assert cuda_grad.loglik_and_grads_fused.calls == before + 1
     ll_ref, g_ref = cuda_grad.loglik_and_grads_plain(a, bfull, pi, tok)
     np.testing.assert_allclose(float(ll), float(ll_ref), rtol=1e-6)
-    _assert_grads([g.double().cpu().numpy() for g in grads],
-                  [g.cpu().numpy() for g in g_ref], rtol=2e-3)
+    for g, r in zip(grads, g_ref):
+        np.testing.assert_allclose(g.double().cpu().numpy(), r.cpu().numpy(),
+                                   rtol=2e-3, atol=0)
     # the block partials are summed in a fixed order: the same bits again
     ll2, grads2 = cuda_grad.loglik_and_grads_fused(a32, b32, p32, tok)
     assert torch.equal(ll, ll2)
