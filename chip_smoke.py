@@ -8,13 +8,16 @@ Run from the root of a checkout, with no arguments:
 Phases, one result line each (every line starts with the card's name and
 power limit):
 
-1. build: compile kernels K1 (``itrails_tpu_torch/csrc/fwd.cu``) and K2
-   (``csrc/grad.cu``) with nvcc for sm_90a, both at once, and print their
-   registers, shared memory and spills;
+1. build: compile kernels K1 (``itrails_tpu_torch/csrc/fwd.cu``), K2
+   (``csrc/grad.cu``) and K3 (``csrc/viterbi.cu``) with nvcc for sm_90a,
+   all at once, and print their registers, shared memory and spills;
 2. K1 and then K2 against their plain PyTorch versions (f64, on the card)
    on the 3x3 model (M=27, 4096 x 8192 tokens) and the 7x7 model (M=133,
    1024 x 2048), built on the card, with ragged PAD tails and all-PAD
    windows; time, launches and the card's least time for the same work;
+   then K3 against its f32 plain version on the card at the same shapes
+   and on a batch with exact ties (two exchangeable states), paths equal
+   exactly, with its peak pointer-table bytes;
 3. the value-only path: ``itrails_tpu_torch.cli.optimize.main --no-grad``
    (Nelder-Mead) at 3x3 on a MAF simulated from the 3x3 model (1.32 M
    columns: 100 blocks of 10 kb and one 320 kb block), with K1's launch
@@ -27,7 +30,16 @@ power limit):
    steps run faster than on the card);
 5. genome scale: ``LoglikEngine`` on 33.5 M simulated columns (4096 x
    8192), seconds per evaluation split into build and decode for the
-   value, and into build, decode (K2) and build backward for the gradient.
+   value, and into build, decode (K2) and build backward for the gradient;
+6. the Viterbi path: ``itrails_tpu_torch.cli.viterbi.main`` at 3x3 on
+   phase 3's MAF with phase 4's ``.best_model.yaml`` as its config (so
+   optimize -> decode end to end), with K3's counters reset just before
+   and read just after; its ``viterbi.csv`` must be byte-identical to the
+   one ``--device cpu --precision float32`` (K3's plain version) writes,
+   the 320 kb block included, and the columns where it differs from the
+   ``--precision float64`` CPU path are counted, with their f64 margin;
+7. the segmented route: the 320 kb block decoded on the card in 65,536-
+   column segments (the threshold lowered) must equal its one-pass path.
 
 Any failure exits non-zero.  The last two lines are the kernels' JSON
 record and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -63,6 +75,10 @@ GENOME = (4096, 8192)
 # K2's gradients against the plain version, per entry: f32 normalizers and
 # sums over T steps
 GRAD_RTOL = 2e-3
+# phase 2: K3 on a 3x3 model with two exchangeable states, windows x columns
+TIE_SHAPE = (512, 2048)
+# phase 7: the segment threshold and segment length the 320 kb block gets
+SEGMENTS = (262_145, 65_536)
 
 
 class SmokeFailure(Exception):
@@ -154,6 +170,23 @@ def k2_bound_ms(m, tokens):
                                          else "bytes")
 
 
+def k3_bound_ms(m, tokens):
+    """Least time of K3's function on these inputs, counted as for K1: per
+    non-PAD column 1..T-1 one add and one compare for each (source,
+    destination) pair, 2*M^2, and 3*M for the emission add, the max and the
+    rescale.  Bytes: each column's token read and its state written (8
+    bytes), and the tables read once; the pointer table is a cost of K3's
+    design and is not counted."""
+    w, t = tokens.shape
+    steps = int((tokens[:, 1:] >= 0).sum())
+    ops = steps * (2 * m * m + 3 * m)
+    nbytes = 8 * w * t + 4 * (m * m + 625 * m + m)
+    by_ops = ops / PEAK_F32_FLOPS
+    by_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes
+                                         else "bytes")
+
+
 def padded_tokens(dev, w, t, seed):
     """(W, T) uniform tokens with ragged PAD tails and all-PAD windows."""
     import torch
@@ -199,12 +232,12 @@ def grad_note(errs, medians):
 def phase_build(card):
     from concurrent.futures import ThreadPoolExecutor
 
-    from itrails_tpu_torch.hmm import _build, cuda_fwd, cuda_grad
+    from itrails_tpu_torch.hmm import _build, cuda_fwd, cuda_grad, cuda_viterbi
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc for each source, at once
-        jobs = [(name, pool.submit(mod.build))
-                for name, mod in (("K1", cuda_fwd), ("K2", cuda_grad))]
+    kernels = (("K1", cuda_fwd), ("K2", cuda_grad), ("K3", cuda_viterbi))
+    with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc a source, at once
+        jobs = [(name, pool.submit(mod.build)) for name, mod in kernels]
         built = [(name, job.result()) for name, job in jobs]
     seconds = time.perf_counter() - t0
     for name, (path, log) in built:
@@ -317,6 +350,92 @@ def phase_k2(card, dev, m_label, n_ab, n_abc, w, t, seed, reps, k1_ms):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def kernel_split(fn):
+    """Device milliseconds of each K3 kernel in one call of ``fn``, from
+    torch.profiler, as text ("not measured" when it records none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    parts = []
+    for ev in prof.key_averages():
+        name = next((k for k in ("viterbi_forward", "viterbi_backtrack")
+                     if k in ev.key), None)
+        if name is not None:
+            parts.append(f"{name} {ev.device_time_total / 1e3:.3f} ms")
+    return " + ".join(sorted(parts)) or "not measured"
+
+
+def phase_k3(card, dev, m_label, n_ab, n_abc, w, t, seed, reps, tie=False):
+    """K3 against its f32 plain version on the card, on the same tables:
+    exact path equality.  With ``tie``, states 0 and 1 of the model are
+    made exchangeable, so every step holds exact ties.  Returns its
+    record."""
+    import torch
+
+    from itrails_tpu_torch.hmm import cuda_viterbi
+
+    a, bfull, pi, _ = build_tables(n_ab, n_abc, dev)
+    a32, b32, p32 = (x.float().contiguous() for x in (a, bfull, pi))
+    if tie:
+        a32[1] = a32[0]
+        a32[:, 1] = a32[:, 0]
+        b32[1] = b32[0]
+        p32[1] = p32[0]
+        m_label += " ties"
+    m = a32.shape[0]
+    tok = padded_tokens(dev, w, t, seed)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    path, omega = cuda_viterbi.viterbi_fused(a32, b32, p32, tok)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    group = cuda_viterbi.window_group(t, m)
+    table_bytes = min(group, w) * (t - 1) * m
+    log_a, log_bt, log_pi = cuda_viterbi.log_tables(a32, b32, p32)
+    om0 = cuda_viterbi.column0(log_bt, log_pi, tok[:, 0])
+    t0 = time.perf_counter()
+    ref, om_ref = cuda_viterbi.viterbi_fused_plain(log_a, log_bt, om0, tok)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    n_diff = int((path != ref).sum())
+    check(tuple(path.shape) == (w, t) and path.dtype == torch.int32,
+          f"K3 {m_label}: misshapen path")
+    check(n_diff == 0, f"K3 {m_label}: {n_diff} path entries differ from the "
+                       "plain version")
+    check(torch.equal(omega, om_ref), f"K3 {m_label}: final omega differs")
+    pad = tok < 0
+    repeats = torch.where(pad, path, torch.zeros_like(path))
+    last_real = path.gather(1, ((~pad).sum(1, keepdim=True) - 1).clamp(min=0))
+    check(bool((repeats == torch.where(pad, last_real, 0)).all()),
+          f"K3 {m_label}: padded steps do not repeat the last state")
+    if tie:
+        check(not bool((path == 1).any()),
+              f"K3 {m_label}: a tie went to the second of two equal states")
+
+    split = kernel_split(lambda: cuda_viterbi.viterbi_fused(a32, b32, p32, tok))
+    before = cuda_viterbi.viterbi_fused.launches
+    ms = cuda_ms(lambda: cuda_viterbi.viterbi_fused(a32, b32, p32, tok), reps)
+    launches = cuda_viterbi.viterbi_fused.launches - before
+    check(launches == 2 * (reps + 1) * -(-w // group),
+          f"K3 {m_label}: timed calls did not all launch the kernels")
+    bound_ms, bound_by = k3_bound_ms(m, tok)
+    print(f"{card} | phase 2 K3 {m_label} M={m} W={w} T={t}: paths equal to "
+          f"the f32 plain version's at all {w * t} columns (exact, ties "
+          f"included), final omega bitwise equal; K3 {ms:.4f} ms (mean of "
+          f"{reps}, {launches // (reps + 1)} launches a call; one call under "
+          f"torch.profiler: {split}), pointer table {table_bytes} bytes "
+          f"({-(-w // group)} group(s)), peak device memory of a call {peak} "
+          f"bytes, plain f32 "
+          f"{plain_ms:.1f} ms (one call, host clock, no yardstick), bound "
+          f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound")
+    return {"max_abs_err": float((path - ref).abs().max()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def phase_cli(card, dev, workdir):
     """The value-only path: the optimize CLI, Nelder-Mead, at 3x3.  Returns
     its launches of K1 and what phase 4 reuses."""
@@ -412,7 +531,7 @@ def phase_cli(card, dev, workdir):
           f"f64 rel err {rel:.3g} (rtol 1e-6); K1 per evaluation: "
           f"{', '.join(per_batch)}; simulation + MAF {prep_s:.1f} s")
     return launches, {"config": config, "v_lst": v_lst, "per_eval": per_eval,
-                      "ref": ref}
+                      "ref": ref, "maf": maf}
 
 
 def phase_cli_grad(card, dev, workdir, cli):
@@ -514,7 +633,7 @@ def phase_cli_grad(card, dev, workdir, cli):
           f"{', '.join(f'{e:.2g}' for e in g_rel)} (rtol 2e-3, against the "
           f"plain f64 version on every batch, {plain_s:.1f} s); K2 per "
           f"evaluation: {'; '.join(per_batch)}")
-    return calls
+    return calls, out + ".best_model.yaml"
 
 
 def phase_genome(card, dev):
@@ -580,6 +699,191 @@ def phase_genome(card, dev):
           f"included), K2 calls {calls}, value vs K1's rel {rel:.3g}")
 
 
+def read_viterbi_csv(path, lengths):
+    """Per-block state arrays from a ``viterbi.csv`` without reference
+    coordinates (one row per run of a state, positions 0-based)."""
+    paths = [np.full(n, -1, dtype=np.int64) for n in lengths]
+    rows = np.loadtxt(path, delimiter=",", skiprows=1, dtype=np.int64, ndmin=2)
+    for block, start, end, state in rows:
+        paths[block][start:end + 1] = state
+    check(all((p >= 0).all() for p in paths), f"{path} leaves columns out")
+    return paths
+
+
+def path_log_score(log_a, log_bt, log_pi, tokens, path):
+    """f64 log-score of a state path under the clamped log tables (numpy):
+    log pi + the log emissions of its columns + its log transitions; PAD
+    columns add nothing.  The difference of two paths' scores is the margin
+    by which the better one wins."""
+    real = tokens >= 0
+    e = log_bt[np.clip(tokens, 0, 624), path]
+    score = log_pi[path[0]] + float(e[real].sum())
+    return score + float(log_a[path[:-1], path[1:]][real[1:]].sum())
+
+
+def phase_viterbi_cli(card, dev, workdir, cli, best_yaml):
+    """The Viterbi path: the Viterbi CLI at 3x3 on phase 3's MAF, with phase
+    4's best model as its config, on the card and then on the CPU in f32
+    and f64.  Returns K3's launches on the card run."""
+    import torch
+
+    from itrails_tpu_torch.cli import decode
+    from itrails_tpu_torch.cli.common import prepare_decode_setup
+    from itrails_tpu_torch.cli.viterbi import main
+    from itrails_tpu_torch.config import load_config
+    from itrails_tpu_torch.hmm import cuda_viterbi, windows
+
+    lengths = [len(v) for v in cli["v_lst"]]
+    n_long = sum(n > decode.LONG_BLOCK_THRESHOLD for n in lengths)
+    outs = {label: os.path.join(workdir, f"viterbi_{label}", "sim")
+            for label in ("card", "cpu32", "cpu64")}
+    cuda_viterbi.viterbi_fused.calls = 0
+    cuda_viterbi.viterbi_fused.launches = 0
+    t0 = time.perf_counter()
+    main([best_yaml, "--output", outs["card"]])
+    torch.cuda.synchronize()
+    calls = cuda_viterbi.viterbi_fused.calls
+    launches = cuda_viterbi.viterbi_fused.launches
+    seconds = {"card": time.perf_counter() - t0}
+    # the two CPU runs (K3's plain version, ~40 s each) in processes of
+    # their own, at once
+    env = dict(os.environ, OMP_NUM_THREADS="4", PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for label, precision in (("cpu32", "float32"), ("cpu64", "float64")):
+            os.makedirs(os.path.dirname(outs[label]), exist_ok=True)
+            log = open(outs[label] + ".log", "w")
+            procs[label] = (log, subprocess.Popen(
+                [sys.executable, "-m", "itrails_tpu_torch.cli.viterbi",
+                 best_yaml, "--output", outs[label], "--device", "cpu",
+                 "--precision", precision],
+                stdout=log, stderr=subprocess.STDOUT, cwd=ROOT, env=env))
+        for label, (log, proc) in procs.items():
+            rc = proc.wait()
+            seconds[label] = time.perf_counter() - t0
+            log.flush()
+            with open(outs[label] + ".log") as f:
+                tail = f.read()[-2000:]
+            check(rc == 0, f"the CPU {label} Viterbi CLI exited {rc}:\n{tail}")
+    finally:  # no process outlives the phase
+        for log, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    runs = {label: (seconds[label], outs[label] + ".viterbi.csv")
+            for label in outs}
+    check(calls == 1 + n_long,
+          f"K3 called {calls} times for 1 batch of short blocks + {n_long} "
+          "long block(s)")
+    check(launches >= 2 * calls, f"K3 launched {launches} times in {calls} calls")
+    with open(runs["card"][1], "rb") as f:
+        card_csv = f.read()
+    with open(runs["cpu32"][1], "rb") as f:
+        cpu32_csv = f.read()
+    on_card = read_viterbi_csv(runs["card"][1], lengths)
+    cpu32 = read_viterbi_csv(runs["cpu32"][1], lengths)
+    cpu64 = read_viterbi_csv(runs["cpu64"][1], lengths)
+    n_states = 27
+    check(all(((p >= 0) & (p < n_states)).all() for p in on_card),
+          "the card's paths hold a state out of range")
+    long_blocks = [i for i, n in enumerate(lengths)
+                   if n > decode.LONG_BLOCK_THRESHOLD]
+    long_equal = all(np.array_equal(on_card[i], cpu32[i]) for i in long_blocks)
+    check(card_csv == cpu32_csv and long_equal,
+          "the card's viterbi.csv differs from the f32 plain version's (CPU): "
+          f"{sum(int((x != y).sum()) for x, y in zip(on_card, cpu32))} columns")
+
+    # K3 alone on each of the CLI's batches, on the card's tables
+    setup = prepare_decode_setup(load_config(best_yaml))
+    _, a, bfull, pi = decode.build(setup, "float32", dev)
+    short = [v for v in cli["v_lst"] if len(v) <= decode.LONG_BLOCK_THRESHOLD]
+    batches = [windows.pack_windows(short)[0]] + [
+        np.asarray(v, np.int32)[None, :] for v in cli["v_lst"]
+        if len(v) > decode.LONG_BLOCK_THRESHOLD]
+    per_batch = []
+    for tok in batches:
+        tok = torch.as_tensor(tok, device=dev)
+        ms = cuda_ms(lambda: cuda_viterbi.viterbi_fused(a, bfull, pi, tok), 1)
+        per_batch.append(f"{tuple(tok.shape)} {ms:.2f} ms")
+
+    diff_blocks = [i for i, (x, y) in enumerate(zip(on_card, cpu64))
+                   if not np.array_equal(x, y)]
+    n_diff = sum(int((on_card[i] != cpu64[i]).sum()) for i in diff_blocks)
+    margins = []
+    if diff_blocks:  # the f64 score of each path, on f64 tables
+        _, a, bfull, pi = decode.build(setup, "float64", "cpu")
+        log_a, log_bt, log_pi = (
+            x.numpy() for x in cuda_viterbi.log_tables(a, bfull, pi))
+        for i in diff_blocks:
+            tok = np.asarray(cli["v_lst"][i])
+            margins.append(
+                path_log_score(log_a, log_bt, log_pi, tok, cpu64[i])
+                - path_log_score(log_a, log_bt, log_pi, tok, on_card[i]))
+    print(f"{card} | phase 6 Viterbi CLI 3x3 on {sum(lengths)} "
+          f"columns in {len(lengths)} blocks ({n_long} long), config "
+          f"{os.path.basename(best_yaml)} of phase 4: card {runs['card'][0]:.2f} s "
+          f"(K3 calls {calls}, launches {launches}; K3 alone per batch: "
+          f"{', '.join(per_batch)}); CPU f32 and f64 at once in two "
+          f"processes, done after {runs['cpu32'][0]:.2f} and "
+          f"{runs['cpu64'][0]:.2f} s (host clock, whole CLI); the card's "
+          f"viterbi.csv is byte-identical "
+          f"to the CPU f32 one ({len(card_csv)} bytes; the "
+          f"{lengths[long_blocks[0]] if long_blocks else 0}-column block "
+          f"equal at every column); columns where the card's path differs "
+          f"from the CPU f64 path: {n_diff} of {sum(lengths)} in "
+          f"{len(diff_blocks)} block(s), f64 score margin of the f64 path "
+          f"per block {', '.join(f'{x:.3g}' for x in margins) or 'none'}")
+    return launches
+
+
+def phase_segmented(card, dev, cli, best_yaml):
+    """The segmented route on the card: the 320 kb block in segments, the
+    threshold lowered, against its one-pass path."""
+    import torch
+
+    from itrails_tpu_torch.cli import decode
+    from itrails_tpu_torch.cli.common import prepare_decode_setup
+    from itrails_tpu_torch.config import load_config
+    from itrails_tpu_torch.hmm import cuda_viterbi, decoders
+
+    setup = prepare_decode_setup(load_config(best_yaml))
+    _, a, bfull, pi = decode.build(setup, "float32", dev)
+    (block,) = [v for v in cli["v_lst"] if len(v) > decode.LONG_BLOCK_THRESHOLD]
+    threshold, seg_cols = SEGMENTS
+    check(len(block) > threshold, "the long block is below the segment threshold")
+    tok = torch.as_tensor(np.asarray(block, np.int32), device=dev)
+    t0 = time.perf_counter()
+    one_pass = decoders.viterbi_fast(a, bfull, pi, tok[None, :])[0].cpu().numpy()
+    one_s = time.perf_counter() - t0
+    saved = decode.SEGMENTED_VITERBI_THRESHOLD, decoders.SEGMENT_COLUMNS
+    decode.SEGMENTED_VITERBI_THRESHOLD, decoders.SEGMENT_COLUMNS = SEGMENTS
+    try:
+        cuda_viterbi.viterbi_fused.calls = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        (segmented,) = decode.run_viterbi(a, bfull, pi, [block])
+        seg_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        calls = cuda_viterbi.viterbi_fused.calls
+    finally:
+        decode.SEGMENTED_VITERBI_THRESHOLD, decoders.SEGMENT_COLUMNS = saved
+    n_seg = -(-(len(block) - 1) // seg_cols)
+    check(calls == 2 * n_seg - 1,
+          f"segmented route: {calls} K3 calls for {n_seg} segments")
+    check(np.array_equal(segmented, one_pass),
+          f"segmented route differs from one pass at "
+          f"{int((segmented != one_pass).sum())} columns")
+    print(f"{card} | phase 7 segmented Viterbi on the card: the "
+          f"{len(block)}-column block in {n_seg} segments of {seg_cols} "
+          f"columns ({calls} K3 calls) equals its one-pass path at every "
+          f"column; segmented {seg_s:.3f} s, one pass {one_s:.3f} s (host "
+          f"clock), peak device memory of the segmented call {peak} bytes")
+
+
 def main():
     import torch
 
@@ -601,16 +905,21 @@ def main():
           for seed, shape in enumerate(K1_SHAPES)]
     k2 = [phase_k2(card, dev, *shape, seed=seed, reps=10, k1_ms=rec["ms"])
           for seed, (shape, rec) in enumerate(zip(K1_SHAPES, k1))]
+    k3 = [phase_k3(card, dev, *shape, seed=seed, reps=10)
+          for seed, shape in enumerate(K1_SHAPES)]
+    phase_k3(card, dev, "3x3", 3, 3, *TIE_SHAPE, seed=5, reps=2, tie=True)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
         k1_launches, cli = phase_cli(card, dev, work)
-        k2_calls = phase_cli_grad(card, dev, work, cli)
-    phase_genome(card, dev)
+        k2_calls, best_yaml = phase_cli_grad(card, dev, work, cli)
+        phase_genome(card, dev)
+        k3_launches = phase_viterbi_cli(card, dev, work, cli, best_yaml)
+        phase_segmented(card, dev, cli, best_yaml)
     print(f"{card} | all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     # each record at the genome-scale 3x3 shape of phase 2; launches from
     # the CLI run of its own path (K1: phase 3, K2: phase 4, where each K2
-    # call launches its two kernels)
+    # call launches its two kernels, K3: phase 6, two kernels a call)
     record = {"kernels": [{
         "name": "k1_forward",
         "route": "cuda",
@@ -627,6 +936,14 @@ def main():
         "launches": 2 * k2_calls,
         "library_ms": None,  # no single PyTorch call computes this function
         **k2[0],
+    }, {
+        "name": "k3_viterbi",
+        "route": "cuda",
+        "source": "itrails_tpu_torch/csrc/viterbi.cu",
+        "replaces": "itrails_tpu/hmm/pallas_viterbi.py:299",
+        "launches": k3_launches,
+        "library_ms": None,  # no single PyTorch call computes this function
+        **k3[0],
     }]}
     print(json.dumps(record))
     print(card)

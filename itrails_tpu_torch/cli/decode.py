@@ -1,0 +1,258 @@
+"""The Viterbi decoding workflow (reference workflow_viterbi.py, and
+``itrails_tpu/cli/decode.py`` for the plain family): config resolution,
+model build, hidden-states CSV, decoding on one device, and the segment
+CSV writer, in formats byte-compatible with the reference."""
+
+from __future__ import annotations
+
+import csv
+import os
+import sys
+
+import numpy as np
+import torch
+
+from itrails_tpu_torch import __version__, resolve_device
+from itrails_tpu_torch.cli.common import (
+    decode_parser,
+    merge_decode_overrides,
+    prepare_decode_setup,
+    resolve_io,
+)
+from itrails_tpu_torch.core.model import build_model
+from itrails_tpu_torch.data.maf import maf_reference_coordinates, maf_tokens
+from itrails_tpu_torch.data.tokens import aggregation_matrix
+from itrails_tpu_torch.hmm import decoders, windows
+
+__all__ = ["TOPOLOGY_MAP", "build", "decode_main", "load_inputs",
+           "run_viterbi", "write_hidden_states", "write_viterbi_csv"]
+
+TOPOLOGY_MAP = {
+    0: "({sp1,sp2},sp3)",
+    1: "((sp1,sp2),sp3)",
+    2: "((sp1,sp3),sp2)",
+    3: "((sp2,sp3),sp1)",
+    4: "({sp2,sp3},sp1)",  # introgressed (reference workflow_int_viterbi.py:672)
+}
+
+
+def decode_main(argv, description, usage):
+    """main() of the Viterbi CLI: full per-parameter override flags and
+    config-optional invocation (reference workflow_viterbi.py:19-158)."""
+    parser = decode_parser(description, usage=usage)
+    parser.add_argument("--version", action="version",
+                        version=f"%(prog)s {__version__}")
+    if argv is None:
+        argv = sys.argv[1:]
+    if not argv:
+        parser.print_usage()
+        sys.exit("Error: No arguments provided. Please provide either a "
+                 "config file, command-line parameters, or both.")
+    args = parser.parse_args(argv)
+    device = resolve_device(args.device)
+    config = merge_decode_overrides(args)
+    obs_mode = config["settings"].get("obs_mode") or "standard"
+    if obs_mode != "standard":
+        raise ValueError("the Viterbi workflow takes only obs_mode "
+                         f"'standard' (4 species), got {obs_mode!r}")
+    setup, v_lst, coords, output_dir, output_prefix = load_inputs(config, args)
+    print("Calculating transition and emission probability matrices.")
+    model, a, bfull, pi = build(setup, args.precision, device)
+    write_hidden_states(
+        os.path.join(output_dir, f"{output_prefix}.hidden_states.csv"),
+        model, setup,
+    )
+    print(f"Running viterbi on {device}.")
+    results = run_viterbi(a, bfull, pi, v_lst)
+    write_viterbi_csv(
+        os.path.join(output_dir, f"{output_prefix}.viterbi.csv"),
+        results, coords,
+    )
+
+
+def load_inputs(config, args):
+    maf_path, _, output_dir, output_prefix = resolve_io(config, args)
+    setup = prepare_decode_setup(config)
+    species = setup["settings"]["species_list"]
+    v_lst = maf_tokens(maf_path, species)
+    if not v_lst:
+        raise ValueError("Error reading MAF alignment file.")
+    ref = setup["settings"].get("reference")
+    coords = (maf_reference_coordinates(maf_path, species, ref)
+              if ref is not None else None)
+    return setup, v_lst, coords, output_dir, output_prefix
+
+
+def build(setup, precision="float64", device="cuda"):
+    """The model, built in f64 on ``device``, and the decode's
+    ``(a, bfull, pi)``: float32 on the card, ``precision`` on the CPU.  The
+    emission table is summed in f64 and then rounded, as the optimize
+    engine does (optim/optimizer.py:LoglikEngine._tables)."""
+    dev = resolve_device(device)
+    d = setup["params"]
+    model = build_model(
+        d["t_A"], d["t_B"], d["t_C"], d["t_2"], d["t_upper"], d["t_out"],
+        d["N_AB"], d["N_ABC"], d["r"], d["n_int_AB"], d["n_int_ABC"],
+        device=dev, cut_AB=setup["norm_cut_ab"], cut_ABC=setup["norm_cut_abc"],
+    )
+    dtype = torch.float32 if dev.type == "cuda" else getattr(torch, precision)
+    bfull = decoders.emission_table(model.b, aggregation_matrix())
+    a, bfull, pi = (x.to(dtype).contiguous() for x in (model.a, bfull, model.pi))
+    return model, a, bfull, pi
+
+
+def write_hidden_states(path, model, setup):
+    """``<prefix>.hidden_states.csv`` (reference workflow_viterbi.py:636-684):
+    the first-coalescent interval of every state, V0 included, is annotated
+    with the ABC cutpoints, as the reference's Viterbi workflow does."""
+    abs_abc = setup["abs_cut_abc"]
+    if os.path.exists(path):
+        print(f"Warning: File '{path}' already exists.")
+        path = path.replace(".hidden_states.csv", ".hidden_states_2.csv")
+        print(f"Using an alternative file name: {path}")
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["state_idx", "topology", "interval_1st_coalescent",
+                    "interval_2nd_coalescent", "shorthand_name"])
+        for idx, state in enumerate(model.hidden_states):
+            code, i, j = state
+            w.writerow([
+                idx,
+                TOPOLOGY_MAP.get(code, "Unknown"),
+                f"{abs_abc[i]:.2f}-{abs_abc[i + 1]:.2f}",
+                f"{abs_abc[j]:.2f}-{abs_abc[j + 1]:.2f}",
+                tuple(state),
+            ])
+    print(f"Hidden states written to file {path}.")
+
+
+# Blocks longer than this leave the window batch and decode as one-window
+# batches of their own (the JAX package's sequence-parallel path is the
+# long-block slice's).
+LONG_BLOCK_THRESHOLD = windows.LONG_BLOCK_THRESHOLD
+# Above this length a block decodes in bounded-memory segments
+# (decoders.viterbi_segmented) instead of with one whole pointer table.
+SEGMENTED_VITERBI_THRESHOLD = 8_388_608
+
+
+def _split_by_length(v_lst):
+    short = [(i, v) for i, v in enumerate(v_lst) if len(v) <= LONG_BLOCK_THRESHOLD]
+    long = [(i, v) for i, v in enumerate(v_lst) if len(v) > LONG_BLOCK_THRESHOLD]
+    return short, long
+
+
+def run_viterbi(a, bfull, pi, v_lst):
+    """The Viterbi path of every block, as int32 numpy arrays, on the
+    tables' device: the short blocks as one padded window batch, each long
+    block as a one-window batch, or in segments above
+    SEGMENTED_VITERBI_THRESHOLD."""
+    dev = a.device
+    short, long = _split_by_length(v_lst)
+    out = [None] * len(v_lst)
+    if short:
+        tokens, lengths, owner = windows.pack_windows([v for _, v in short],
+                                                      pad_windows_to=1)
+        paths = decoders.viterbi_fast(
+            a, bfull, pi, torch.as_tensor(tokens, device=dev)).cpu().numpy()
+        rows = [paths[w, : lengths[w]] for w in range(len(owner)) if owner[w] >= 0]
+        for (i, _), row in zip(short, rows):
+            out[i] = row
+    for i, v in long:
+        v = torch.as_tensor(np.asarray(v, np.int32), device=dev)
+        if len(v) > SEGMENTED_VITERBI_THRESHOLD:
+            path = decoders.viterbi_segmented(a, bfull, pi, v)
+        else:
+            path = decoders.viterbi_fast(a, bfull, pi, v[None, :])[0]
+        out[i] = path.cpu().numpy()
+    return out
+
+
+def _rle_rows(block_idx, res, c):
+    """Rows of the Viterbi segment CSV for one block, matching the
+    reference's per-position serial loop (workflow_viterbi.py:692-744)
+    exactly, but touching Python only at state-change events (found
+    vectorized with np.diff), so a chromosome-scale block costs
+    O(#segments) instead of O(T)."""
+    res = np.asarray(res)
+    n = len(res)
+    rows = []
+    if n == 0:
+        return rows
+    if c is None:
+        bounds = np.flatnonzero(res[1:] != res[:-1]) + 1  # segment starts
+        starts = np.concatenate([[0], bounds])
+        ends = np.concatenate([bounds - 1, [n - 1]])
+        for s, e in zip(starts, ends):
+            rows.append([block_idx, s, e, res[s]])
+        return rows
+
+    # Event-driven replay of the reference's per-position state machine.
+    # Serial semantics: a change at a non-gap position ends the segment and
+    # starts a new one there; a change at a GAP position ends the segment
+    # and enters "reset" mode, in which all further changes are swallowed
+    # until the next non-gap position restarts a segment; a block ending in
+    # reset mode emits no final row.  Within a segment `res` is constant,
+    # so the only positions that matter are the change events (np.diff) and
+    # the anchors (c != -9) bracketing them.
+    c = np.asarray(c)
+    anchor_idx = np.flatnonzero(c != -9)
+    if anchor_idx.size == 0:
+        return rows
+    first = int(anchor_idx[0])
+    # index of the last anchor strictly before each event / end
+    events = np.flatnonzero(res[first + 1:] != res[first:-1]) + first + 1
+    lb_at = anchor_idx[
+        np.maximum(np.searchsorted(anchor_idx, events, side="left") - 1, 0)
+    ] if events.size else np.empty(0, np.int64)
+    next_anchor_at = np.searchsorted(anchor_idx, events, side="right")
+
+    seg_start = int(c[first])
+    cur = res[first]
+    reset_exit = -1  # >=0: in reset mode until the anchor at this index
+    for k in range(len(events)):
+        p = int(events[k])
+        if reset_exit >= 0:
+            if p <= reset_exit:
+                continue  # swallowed inside the gap (or at the exit anchor)
+            # a new segment began at the exit anchor
+            seg_start = int(c[reset_exit])
+            cur = res[reset_exit]
+            reset_exit = -1
+            if res[p] == cur:
+                continue  # no change relative to the restarted segment
+        cur_non_null = int(c[lb_at[k]])
+        rows.append([block_idx, seg_start, cur_non_null, cur])
+        if c[p] != -9:
+            seg_start = int(c[p])
+            cur = res[p]
+        else:
+            j = next_anchor_at[k]
+            if j < anchor_idx.size:
+                reset_exit = int(anchor_idx[j])
+            elif p == n - 1:
+                # change at the final position, gap coordinate: the serial
+                # loop ends before any reset iteration clears cur_non_null,
+                # so a (-9)-start row IS emitted
+                rows.append([block_idx, -9, int(c[anchor_idx[-1]]), res[p]])
+                return rows
+            else:
+                return rows  # terminal gap run: reference emits nothing more
+    if reset_exit >= 0:
+        seg_start = int(c[reset_exit])
+        cur = res[reset_exit]
+    rows.append([block_idx, seg_start, int(c[anchor_idx[-1]]), cur])
+    return rows
+
+
+def write_viterbi_csv(path, results, coords):
+    """Run-length-encoded state segments (reference
+    workflow_viterbi.py:692-744).  Event-driven RLE: np.diff finds the
+    segment boundaries so writing a 1e8-column block is O(#segments)."""
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["Block_idx", "position_start", "position_end",
+                    "most_likely_state"])
+        for block_idx, res in enumerate(results):
+            c = None if coords is None else coords[block_idx]
+            w.writerows(_rle_rows(block_idx, res, c))
+    print(f"Viterbi decoding complete. Results saved to {path}.")

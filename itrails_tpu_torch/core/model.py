@@ -45,13 +45,17 @@ def build_model_fn(n_int_AB: int, n_int_ABC: int, dtype=torch.float64,
     tensors on ``device``; ``fn`` is plain tensor arithmetic, so torch
     autograd differentiates the tables in tensors that require grad.
     Everything that depends only on ``(n_int_AB, n_int_ABC)`` is compiled
-    and uploaded once, here."""
+    and uploaded once, here.  ``fn`` optionally takes manual cutpoints,
+    ``cut_AB`` (n_int_AB + 1,) and ``cut_ABC`` (n_int_ABC + 1,) tensors in
+    coalescent units (the last ABC entry is not read), in place of the
+    standard quantiles."""
     dev = resolve_device(device)
     plan = build_plan(n_int_AB, n_int_ABC)
     joint_fn = JointMatrixFn(plan, dtype, device=dev)
     emission_fn = EmissionMatrixFn(n_int_AB, n_int_ABC, device=dev)
 
-    def fn(t_A, t_B, t_C, t_2, t_upper, t_out, N_AB, N_ABC, r):
+    def fn(t_A, t_B, t_C, t_2, t_upper, t_out, N_AB, N_ABC, r, cut_AB=None,
+           cut_ABC=None):
         n_ref = N_ABC
         t_a = t_A / n_ref
         t_b = t_B / n_ref
@@ -64,8 +68,10 @@ def build_model_fn(n_int_AB: int, n_int_ABC: int, dtype=torch.float64,
         coal_abc = 1.0
         mu_scale = n_ref * (4.0 / 3.0)
 
-        cut_AB = cutpoints_ab(n_int_AB, t_ab, coal_ab, dtype, device=dev)
-        cut_ABC = cutpoints_abc(n_int_ABC, coal_abc, dtype, device=dev)
+        if cut_AB is None:
+            cut_AB = cutpoints_ab(n_int_AB, t_ab, coal_ab, dtype, device=dev)
+        if cut_ABC is None:
+            cut_ABC = cutpoints_abc(n_int_ABC, coal_abc, dtype, device=dev)
         joint = joint_fn(
             coal_A=coal_ab, coal_B=coal_ab, coal_C=coal_ab, coal_AB=coal_ab,
             coal_ABC=coal_abc, rho_A=rho, rho_B=rho, rho_C=rho, rho_AB=rho,
@@ -87,12 +93,24 @@ def build_model_fn(n_int_AB: int, n_int_ABC: int, dtype=torch.float64,
 
 def build_model(t_A, t_B, t_C, t_2, t_upper, t_out, N_AB, N_ABC, r,
                 n_int_AB: int, n_int_ABC: int, dtype=torch.float64,
-                device="cuda") -> HmmModel:
+                device="cuda", cut_AB=None, cut_ABC=None) -> HmmModel:
     """One model build, as an :class:`HmmModel` (the reference's
-    trans_emiss_calc signature, get_trans_emiss.py:8-60)."""
-    fn = build_model_fn(n_int_AB, n_int_ABC, dtype, device)
+    trans_emiss_calc signature, get_trans_emiss.py:8-60).  ``cut_AB`` /
+    ``cut_ABC`` optionally override the standard quantile cutpoints
+    (coalescent units; ABC may hold n_int_ABC values, the final infinite
+    bound implicit, or n_int_ABC + 1 with a last entry that is replaced),
+    as ``itrails_tpu/core/model.py:build_model`` takes them."""
+    dev = resolve_device(device)
+    fn = build_model_fn(n_int_AB, n_int_ABC, dtype, dev)
+    cuts = {}
+    if cut_AB is not None:
+        cuts["cut_AB"] = torch.as_tensor(cut_AB, dtype=dtype, device=dev)
+    if cut_ABC is not None:
+        cut = torch.as_tensor(cut_ABC, dtype=dtype, device=dev)
+        cuts["cut_ABC"] = torch.cat([cut[:n_int_ABC],
+                                     torch.zeros(1, dtype=dtype, device=dev)])
     a, b, pi, cut_ab, cut_abc = fn(t_A, t_B, t_C, t_2, t_upper, t_out, N_AB,
-                                   N_ABC, r)
+                                   N_ABC, r, **cuts)
     return HmmModel(a=a, b=b, pi=pi,
                     hidden_states=build_plan(n_int_AB, n_int_ABC).hidden_states,
                     cut_AB=cut_ab, cut_ABC=cut_abc)

@@ -1,10 +1,14 @@
-"""HMM forward decoding over window batches.
+"""HMM decoding over window batches.
 
 ``emission_table``, ``forward`` and ``forward_loglik`` are the plain
 reference decoders: a log-space forward scan with a per-step max shift
 (reference optimizer.py:165-188), one (W, M) @ (M, M) product per column.
 ``forward_loglik_fast`` is what the optimizer calls: kernel K1
 (``hmm/cuda_fwd.py``) on the card, its plain version on the CPU.
+``viterbi`` is the plain max-plus decoder and ``viterbi_fast`` what the
+Viterbi CLI calls: kernel K3 (``hmm/cuda_viterbi.py``) on the card, the
+same plain recursion on the CPU.  ``viterbi_segmented`` decodes one long
+block in bounded memory.
 
 Padding: windows are right-padded with ``PAD_TOKEN``; padded steps carry
 state through unchanged so every quantity equals the unpadded computation.
@@ -15,10 +19,15 @@ from __future__ import annotations
 import torch
 
 from itrails_tpu_torch.data.tokens import PAD_TOKEN
-from itrails_tpu_torch.hmm import cuda_fwd
+from itrails_tpu_torch.hmm import cuda_fwd, cuda_viterbi
 
 __all__ = ["emission_table", "forward", "forward_loglik",
-           "forward_loglik_fast"]
+           "forward_loglik_fast", "viterbi", "viterbi_fast",
+           "viterbi_segmented"]
+
+# Columns of one segment of viterbi_segmented: its pointer table is
+# SEGMENT_COLUMNS x M bytes (27 MB at M = 27, 133 MB at M = 133).
+SEGMENT_COLUMNS = 1 << 20
 
 
 def emission_table(b, agg):
@@ -57,3 +66,62 @@ def forward_loglik_fast(a, bfull, pi, tokens):
     On the card this is kernel K1, which takes contiguous float32 tables;
     on the CPU it is K1's plain version in the tables' dtype."""
     return cuda_fwd.forward_loglik_fused(a, bfull, pi, tokens)
+
+
+def viterbi(a, bfull, pi, tokens):
+    """Most-probable state path per window: (W, T) int32, in the dtype of
+    ``a`` (itrails_tpu/hmm/decoders.py:220).
+
+    Padded steps repeat the last real state; mask with
+    ``tokens != PAD_TOKEN`` when consuming.  The recursion is K3's, operation
+    for operation (``cuda_viterbi.viterbi_fused_plain``): log-probabilities
+    clamped at -1e4, omega rescaled by its per-window max every step, and
+    the argmax over the pre-emission scores, first index on ties.  In f64
+    on real models this is the reference max-plus recursion
+    (optimizer.py:305-333): the rescale shifts all scores of a window and
+    never changes an argmax at real-model margins."""
+    log_a, log_bt, log_pi = cuda_viterbi.log_tables(a, bfull, pi)
+    omega0 = cuda_viterbi.column0(log_bt, log_pi, tokens[:, 0])
+    return cuda_viterbi.viterbi_fused_plain(log_a, log_bt, omega0, tokens)[0]
+
+
+def viterbi_fast(a, bfull, pi, tokens):
+    """Viterbi path (W, T) int32 of a (W, T) token batch: kernel K3 on the
+    card, which takes contiguous float32 tables and int32 tokens; on the
+    CPU the same recursion in plain PyTorch, in the tables' dtype."""
+    return cuda_viterbi.viterbi_fused(a, bfull, pi, tokens)[0]
+
+
+def viterbi_segmented(a, bfull, pi, tokens):
+    """Viterbi path (T,) int32 of one block, a 1-D token tensor, in bounded
+    memory (the counterpart of itrails_tpu/hmm/longseq.py:441).
+
+    The one-pass decode keeps a (T-1) x M pointer table.  Here columns
+    1..T-1 are cut into segments of SEGMENT_COLUMNS: a first pass keeps only
+    omega at each segment's entry; a reverse pass reruns K3 (its plain
+    version on the CPU) on one segment at a time from its entry omega and
+    backtracks from the state that the later segment handed down.  The
+    rescale of every step is deterministic, so the path is the one-pass
+    path bit for bit; the cost is a second forward pass over all but the
+    last segment."""
+    t_len = tokens.shape[0]
+    bounds = list(range(1, t_len, SEGMENT_COLUMNS)) + [t_len]
+    if len(bounds) <= 2:
+        return viterbi_fast(a, bfull, pi, tokens[None, :])[0]
+
+    def segment(k, **state):
+        # segment k covers columns bounds[k]..bounds[k+1]-1; its window
+        # starts one column earlier, where the entry omega stands
+        window = tokens[None, bounds[k] - 1:bounds[k + 1]]
+        return cuda_viterbi.viterbi_fused(a, bfull, pi, window, **state)
+
+    entries = [None]  # omega at each segment's entry; segment 0: column 0
+    for k in range(len(bounds) - 2):
+        entries.append(segment(k, omega0=entries[k])[1])
+    path = torch.empty(t_len, dtype=torch.int32, device=tokens.device)
+    last = None  # the final segment ends at the argmax of the final omega
+    for k in range(len(bounds) - 2, -1, -1):
+        seg_path = segment(k, omega0=entries[k], last=last)[0][0]
+        path[bounds[k] - 1:bounds[k + 1]] = seg_path
+        last = seg_path[:1].contiguous()
+    return path

@@ -38,6 +38,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import itrails_tpu_torch, itrails_tpu_torch.cli.optimize\n"
         "import itrails_tpu_torch.convert, itrails_tpu_torch.data.simulate\n"
         "import itrails_tpu_torch.hmm.grad, itrails_tpu_torch.hmm.cuda_grad\n"
+        "import itrails_tpu_torch.cli.viterbi, itrails_tpu_torch.cli.decode\n"
+        "import itrails_tpu_torch.hmm.cuda_viterbi\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'itrails_tpu' or m.startswith('itrails_tpu.'))\n"
         "print(','.join(bad))\n"
@@ -58,7 +60,7 @@ def test_port_sources_name_no_jax_import():
 
 
 @pytest.mark.parametrize("entry", ["engine", "builder", "cli", "grad",
-                                   "convert"])
+                                   "convert", "viterbi"])
 def test_entry_points_refuse_cpu_without_being_asked(entry, no_card, tmp_path):
     if entry == "engine":
         from itrails_tpu_torch.optim.optimizer import LoglikEngine
@@ -80,6 +82,11 @@ def test_entry_points_refuse_cpu_without_being_asked(entry, no_card, tmp_path):
 
         def call():
             main([str(tmp_path / "missing.yaml")])  # the default: gradients
+    elif entry == "viterbi":
+        from itrails_tpu_torch.cli.viterbi import main
+
+        def call():
+            main([str(tmp_path / "missing.yaml")])
     else:
         from itrails_tpu_torch.convert import model_from_numpy
 
@@ -155,3 +162,35 @@ def test_k2_wrapper_raises_on_inputs_it_does_not_take(cuda_device):
     assert cuda_grad.loglik_and_grads_fused.calls == before
     cuda_grad.loglik_and_grads_fused(a, bfull, pi, tok)
     assert cuda_grad.loglik_and_grads_fused.calls == before + 1
+
+
+@pytest.mark.gpu
+def test_k3_wrapper_raises_on_inputs_it_does_not_take(cuda_device):
+    from itrails_tpu_torch.hmm import cuda_viterbi
+
+    m = 27
+    a = torch.full((m, m), 1.0 / m, device=cuda_device)
+    bfull = torch.full((m, 625), 0.01, device=cuda_device)
+    pi = torch.full((m,), 1.0 / m, device=cuda_device)
+    tok = torch.zeros((2, 5), dtype=torch.int32, device=cuda_device)
+    before = cuda_viterbi.viterbi_fused.launches
+    with pytest.raises(ValueError, match="float32"):
+        cuda_viterbi.viterbi_fused(a.double(), bfull, pi, tok)
+    with pytest.raises(ValueError, match="int32"):
+        cuda_viterbi.viterbi_fused(a, bfull, pi, tok.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_viterbi.viterbi_fused(a.T, bfull, pi, tok)
+    with pytest.raises(ValueError, match="states"):
+        big = torch.full((256, 256), 1.0 / 256, device=cuda_device)
+        cuda_viterbi.viterbi_fused(
+            big, torch.full((256, 625), 0.01, device=cuda_device),
+            torch.full((256,), 1.0 / 256, device=cuda_device), tok)
+    with pytest.raises(ValueError, match="omega0"):
+        cuda_viterbi.viterbi_fused(a, bfull, pi, tok,
+                                   omega0=torch.zeros((2, m), device="cpu"))
+    with pytest.raises(ValueError, match="last"):
+        cuda_viterbi.viterbi_fused(a, bfull, pi, tok, last=torch.zeros(
+            2, dtype=torch.int64, device=cuda_device))
+    assert cuda_viterbi.viterbi_fused.launches == before
+    cuda_viterbi.viterbi_fused(a, bfull, pi, tok)
+    assert cuda_viterbi.viterbi_fused.launches == before + 2
