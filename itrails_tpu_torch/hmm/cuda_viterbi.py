@@ -181,6 +181,8 @@ def viterbi_fused(a, bfull, pi, tokens, omega0=None, last=None):
         _check_state_input("omega0", omega0, (w, m), torch.float32, dev)
     if last is not None:
         _check_state_input("last", last, (w,), torch.int32, dev)
+        if bool(((last < 0) | (last >= m)).any()):  # the kernel indexes by it
+            raise ValueError(f"viterbi_fused: last must lie in [0, {m})")
 
     with torch.cuda.device(dev):
         log_a, log_bt, log_pi = log_tables(a, bfull, pi)

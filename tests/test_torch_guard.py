@@ -191,6 +191,9 @@ def test_k3_wrapper_raises_on_inputs_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="last"):
         cuda_viterbi.viterbi_fused(a, bfull, pi, tok, last=torch.zeros(
             2, dtype=torch.int64, device=cuda_device))
+    with pytest.raises(ValueError, match="last must lie"):
+        cuda_viterbi.viterbi_fused(a, bfull, pi, tok, last=torch.full(
+            (2,), m, dtype=torch.int32, device=cuda_device))
     assert cuda_viterbi.viterbi_fused.launches == before
     cuda_viterbi.viterbi_fused(a, bfull, pi, tok)
     assert cuda_viterbi.viterbi_fused.launches == before + 2
