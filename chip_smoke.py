@@ -778,7 +778,6 @@ def phase_viterbi_cli(card, dev, workdir, cli, best_yaml):
     check(calls == 1 + n_long,
           f"K3 called {calls} times for 1 batch of short blocks + {n_long} "
           "long block(s)")
-    check(launches >= 2 * calls, f"K3 launched {launches} times in {calls} calls")
     with open(runs["card"][1], "rb") as f:
         card_csv = f.read()
     with open(runs["cpu32"][1], "rb") as f:
@@ -803,6 +802,12 @@ def phase_viterbi_cli(card, dev, workdir, cli, best_yaml):
     batches = [windows.pack_windows(short)[0]] + [
         np.asarray(v, np.int32)[None, :] for v in cli["v_lst"]
         if len(v) > decode.LONG_BLOCK_THRESHOLD]
+    # each call launches the forward and the backtrack once per window group
+    expected = sum(2 * -(-tok.shape[0] // cuda_viterbi.window_group(
+        tok.shape[1], n_states)) for tok in batches)
+    check(launches == expected,
+          f"K3 launched {launches} times in {calls} calls; the CLI's batches "
+          f"take {expected}")
     per_batch = []
     for tok in batches:
         tok = torch.as_tensor(tok, device=dev)

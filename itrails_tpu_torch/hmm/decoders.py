@@ -5,10 +5,9 @@ reference decoders: a log-space forward scan with a per-step max shift
 (reference optimizer.py:165-188), one (W, M) @ (M, M) product per column.
 ``forward_loglik_fast`` is what the optimizer calls: kernel K1
 (``hmm/cuda_fwd.py``) on the card, its plain version on the CPU.
-``viterbi`` is the plain max-plus decoder and ``viterbi_fast`` what the
-Viterbi CLI calls: kernel K3 (``hmm/cuda_viterbi.py``) on the card, the
-same plain recursion on the CPU.  ``viterbi_segmented`` decodes one long
-block in bounded memory.
+``viterbi_fast`` is the max-plus decoder the Viterbi CLI calls: kernel K3
+(``hmm/cuda_viterbi.py``) on the card, its plain version on the CPU.
+``viterbi_segmented`` decodes one long block in bounded memory.
 
 Padding: windows are right-padded with ``PAD_TOKEN``; padded steps carry
 state through unchanged so every quantity equals the unpadded computation.
@@ -22,8 +21,7 @@ from itrails_tpu_torch.data.tokens import PAD_TOKEN
 from itrails_tpu_torch.hmm import cuda_fwd, cuda_viterbi
 
 __all__ = ["emission_table", "forward", "forward_loglik",
-           "forward_loglik_fast", "viterbi", "viterbi_fast",
-           "viterbi_segmented"]
+           "forward_loglik_fast", "viterbi_fast", "viterbi_segmented"]
 
 # Columns of one segment of viterbi_segmented: its pointer table is
 # SEGMENT_COLUMNS x M bytes (27 MB at M = 27, 133 MB at M = 133).
@@ -68,27 +66,21 @@ def forward_loglik_fast(a, bfull, pi, tokens):
     return cuda_fwd.forward_loglik_fused(a, bfull, pi, tokens)
 
 
-def viterbi(a, bfull, pi, tokens):
-    """Most-probable state path per window: (W, T) int32, in the dtype of
-    ``a`` (itrails_tpu/hmm/decoders.py:220).
+def viterbi_fast(a, bfull, pi, tokens):
+    """Most-probable state path per window: (W, T) int32
+    (itrails_tpu/hmm/decoders.py:161 viterbi_fast).  On the card this is
+    kernel K3, which takes contiguous float32 tables and int32 tokens; on
+    the CPU it is K3's plain version (``cuda_viterbi.viterbi_fused_plain``)
+    in the tables' dtype.
 
     Padded steps repeat the last real state; mask with
-    ``tokens != PAD_TOKEN`` when consuming.  The recursion is K3's, operation
-    for operation (``cuda_viterbi.viterbi_fused_plain``): log-probabilities
-    clamped at -1e4, omega rescaled by its per-window max every step, and
-    the argmax over the pre-emission scores, first index on ties.  In f64
-    on real models this is the reference max-plus recursion
+    ``tokens != PAD_TOKEN`` when consuming.  The recursion is that of
+    itrails_tpu/hmm/decoders.py:220 viterbi, operation for operation:
+    log-probabilities clamped at -1e4, omega rescaled by its per-window max
+    every step, and the argmax over the pre-emission scores, first index on
+    ties.  In f64 on real models this is the reference max-plus recursion
     (optimizer.py:305-333): the rescale shifts all scores of a window and
     never changes an argmax at real-model margins."""
-    log_a, log_bt, log_pi = cuda_viterbi.log_tables(a, bfull, pi)
-    omega0 = cuda_viterbi.column0(log_bt, log_pi, tokens[:, 0])
-    return cuda_viterbi.viterbi_fused_plain(log_a, log_bt, omega0, tokens)[0]
-
-
-def viterbi_fast(a, bfull, pi, tokens):
-    """Viterbi path (W, T) int32 of a (W, T) token batch: kernel K3 on the
-    card, which takes contiguous float32 tables and int32 tokens; on the
-    CPU the same recursion in plain PyTorch, in the tables' dtype."""
     return cuda_viterbi.viterbi_fused(a, bfull, pi, tokens)[0]
 
 

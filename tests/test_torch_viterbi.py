@@ -1,5 +1,5 @@
-"""The port's Viterbi (``hmm/decoders.py:viterbi``, kernel K3's plain
-version in ``hmm/cuda_viterbi.py``) against the JAX package's scan
+"""The port's Viterbi (kernel K3's plain version,
+``hmm/cuda_viterbi.py:viterbi_fused_plain``) against the JAX package's scan
 (``itrails_tpu.hmm.decoders.viterbi``), its Pallas kernel in interpret mode
 and the original iTRAILS paths (goldens/hmm_*.npz), exactly, ties
 included; the segmented route against the one-pass route; and, on the
@@ -58,11 +58,19 @@ def _jax_viterbi(a, bfull, pi, tok, dtype):
         *(jnp.asarray(x, dtype) for x in (a, bfull, pi)), jnp.asarray(tok)))
 
 
-def _port_viterbi(a, bfull, pi, tok, dtype):
-    from itrails_tpu_torch.hmm import decoders
+def _plain(a, bfull, pi, tok):
+    """K3's plain version on torch tables: log tables, column 0, then the
+    recursion, as the wrapper's CPU branch runs it."""
+    from itrails_tpu_torch.hmm import cuda_viterbi
 
+    log_a, log_bt, log_pi = cuda_viterbi.log_tables(a, bfull, pi)
+    omega0 = cuda_viterbi.column0(log_bt, log_pi, tok[:, 0])
+    return cuda_viterbi.viterbi_fused_plain(log_a, log_bt, omega0, tok)[0]
+
+
+def _port_viterbi(a, bfull, pi, tok, dtype):
     tables = (torch.tensor(x.astype(dtype)) for x in (a, bfull, pi))
-    return decoders.viterbi(*tables, torch.tensor(tok)).numpy()
+    return _plain(*tables, torch.tensor(tok)).numpy()
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
@@ -139,8 +147,7 @@ def test_plain_matches_reference_goldens(tag, seq):
     h = load_golden(f"hmm_{tag}.npz")
     bfull = decoders.emission_table(torch.tensor(m["b"]), aggregation_matrix())
     tok = torch.tensor(h[f"{seq}_tokens"].astype(np.int32))[None, :]
-    path = decoders.viterbi(torch.tensor(m["a"]), bfull, torch.tensor(m["pi"]),
-                            tok)[0]
+    path = _plain(torch.tensor(m["a"]), bfull, torch.tensor(m["pi"]), tok)[0]
     np.testing.assert_array_equal(path.numpy(), h[f"{seq}_viterbi"])
 
 
@@ -152,7 +159,7 @@ def test_fast_dispatch_on_cpu_is_the_plain_version():
     calls = cuda_viterbi.viterbi_fused.calls
     launches = cuda_viterbi.viterbi_fused.launches
     got = decoders.viterbi_fast(a, bfull, pi, tok)
-    assert torch.equal(got, decoders.viterbi(a, bfull, pi, tok))
+    assert torch.equal(got, _plain(a, bfull, pi, tok))
     assert got.dtype == torch.int32 and tuple(got.shape) == (4, 31)
     assert cuda_viterbi.viterbi_fused.calls == calls
     assert cuda_viterbi.viterbi_fused.launches == launches
@@ -197,7 +204,7 @@ def test_segmented_route_matches_one_pass(dtype, monkeypatch):
     monkeypatch.setattr(decoders, "SEGMENT_COLUMNS", 128)
     segmented = decode.run_viterbi(a, bfull, pi, v_lst)
     for v, p1, p2 in zip(v_lst, one_pass, segmented):
-        ref = decoders.viterbi(a, bfull, pi, torch.tensor(v)[None, :])[0]
+        ref = _plain(a, bfull, pi, torch.tensor(v)[None, :])[0]
         np.testing.assert_array_equal(p2, p1)
         np.testing.assert_array_equal(p1, ref.numpy())
         assert p1.dtype == np.int32 and len(p1) == len(v)
@@ -212,7 +219,7 @@ def test_segment_edges(seg_cols, monkeypatch):
     a, bfull, pi = (torch.tensor(x) for x in _random_model(9, seed=11))
     tok = torch.tensor(np.random.default_rng(12).integers(
         0, 625, size=60).astype(np.int32))
-    ref = decoders.viterbi(a, bfull, pi, tok[None, :])[0]
+    ref = _plain(a, bfull, pi, tok[None, :])[0]
     monkeypatch.setattr(decoders, "SEGMENT_COLUMNS", seg_cols)
     assert torch.equal(decoders.viterbi_segmented(a, bfull, pi, tok), ref)
 
