@@ -9,15 +9,19 @@ Phases, one result line each (every line starts with the card's name and
 power limit):
 
 1. build: compile kernels K1 (``itrails_tpu_torch/csrc/fwd.cu``), K2
-   (``csrc/grad.cu``) and K3 (``csrc/viterbi.cu``) with nvcc for sm_90a,
-   all at once, and print their registers, shared memory and spills;
+   (``csrc/grad.cu``), K3 (``csrc/viterbi.cu``) and K4
+   (``csrc/posterior.cu``) with nvcc for sm_90a, all at once, and print
+   their registers, shared memory and spills;
 2. K1 and then K2 against their plain PyTorch versions (f64, on the card)
    on the 3x3 model (M=27, 4096 x 8192 tokens) and the 7x7 model (M=133,
    1024 x 2048), built on the card, with ragged PAD tails and all-PAD
    windows; time, launches and the card's least time for the same work;
    then K3 against its f32 plain version on the card at the same shapes
    and on a batch with exact ties (two exchangeable states), paths equal
-   exactly, with its peak pointer-table bytes;
+   exactly, with its peak pointer-table bytes; then K4 against its f64
+   plain version on the card at the same shapes, every non-PAD entry at
+   atol 2e-5 and every non-PAD column's posterior summing to 1 within
+   1e-5, with its peak device bytes;
 3. the value-only path: ``itrails_tpu_torch.cli.optimize.main --no-grad``
    (Nelder-Mead) at 3x3 on a MAF simulated from the 3x3 model (1.32 M
    columns: 100 blocks of 10 kb and one 320 kb block), with K1's launch
@@ -39,7 +43,18 @@ power limit):
    the 320 kb block included, and the columns where it differs from the
    ``--precision float64`` CPU path are counted, with their f64 margin;
 7. the segmented route: the 320 kb block decoded on the card in 65,536-
-   column segments (the threshold lowered) must equal its one-pass path.
+   column segments (the threshold lowered) must equal its one-pass path;
+8. the posterior path: ``itrails_tpu_torch.cli.posterior.main`` at 3x3 on
+   phase 3's MAF with phase 4's ``.best_model.yaml``, with K4's counters
+   reset just before and read just after (launches: exactly two per
+   window group and long block); every column of every block it writes
+   held against the f64 plain version at atol 2e-5 (the one-window long
+   block on the CPU, in a process of its own while the card runs the
+   CLI), the CSV's header and row count checked and rows of every block
+   read back as the card's f32 values; seconds split into decode and
+   write;
+9. the segmented posterior: the 320 kb block in 65,536-column segments
+   (the threshold lowered) must give phase 8's one-pass rows bit for bit.
 
 Any failure exits non-zero.  The last two lines are the kernels' JSON
 record and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -77,8 +92,28 @@ GENOME = (4096, 8192)
 GRAD_RTOL = 2e-3
 # phase 2: K3 on a 3x3 model with two exchangeable states, windows x columns
 TIE_SHAPE = (512, 2048)
-# phase 7: the segment threshold and segment length the 320 kb block gets
+# phases 7 and 9: the segment threshold and segment length the 320 kb block
+# gets
 SEGMENTS = (262_145, 65_536)
+# phase 2: K4 against its f64 plain version, per non-PAD entry, as
+# tests/test_pallas_fwd.py:78 holds the TPU kernel against the scan
+POST_ATOL = 2e-5
+# the f64 posterior of one block, on the CPU (phase 8's long block)
+POSTERIOR_REF = (
+    "import sys\n"
+    "import numpy as np\n"
+    "import torch\n"
+    "from itrails_tpu_torch.cli import decode\n"
+    "from itrails_tpu_torch.cli.common import prepare_decode_setup\n"
+    "from itrails_tpu_torch.config import load_config\n"
+    "from itrails_tpu_torch.hmm import cuda_posterior\n"
+    "torch.set_num_threads(1)\n"
+    "config, tokens, out = sys.argv[1:]\n"
+    "_, a, bfull, pi = decode.build(\n"
+    "    prepare_decode_setup(load_config(config)), 'float64', 'cpu')\n"
+    "tok = torch.as_tensor(np.load(tokens))[None, :]\n"
+    "post, _ = cuda_posterior.posterior_fused_plain(a, bfull, pi, tok)\n"
+    "np.save(out, post[:, 0, :].numpy())\n")
 
 
 class SmokeFailure(Exception):
@@ -187,6 +222,23 @@ def k3_bound_ms(m, tokens):
                                          else "bytes")
 
 
+def k4_bound_ms(m, tokens):
+    """Least time of K4's function on these inputs: per non-PAD column the
+    two M x M products (a^T alpha and a^T (e * beta), 4*M^2) and 9*M for the
+    emission products, the three normalizations and gamma's product; bytes:
+    each non-PAD column's token read (4) and its posterior row written
+    (4*M), and the tables read once.  The alpha store (written by the
+    forward, read back and overwritten by the reverse sweep) is a cost of
+    K4's design and is not counted."""
+    steps = int((tokens >= 0).sum())
+    ops = steps * (4 * m * m + 9 * m)
+    nbytes = steps * (4 + 4 * m) + 4 * (m * m + 625 * m + m)
+    by_ops = ops / PEAK_F32_FLOPS
+    by_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes
+                                         else "bytes")
+
+
 def padded_tokens(dev, w, t, seed):
     """(W, T) uniform tokens with ragged PAD tails and all-PAD windows."""
     import torch
@@ -232,10 +284,12 @@ def grad_note(errs, medians):
 def phase_build(card):
     from concurrent.futures import ThreadPoolExecutor
 
-    from itrails_tpu_torch.hmm import _build, cuda_fwd, cuda_grad, cuda_viterbi
+    from itrails_tpu_torch.hmm import (_build, cuda_fwd, cuda_grad,
+                                       cuda_posterior, cuda_viterbi)
 
     t0 = time.perf_counter()
-    kernels = (("K1", cuda_fwd), ("K2", cuda_grad), ("K3", cuda_viterbi))
+    kernels = (("K1", cuda_fwd), ("K2", cuda_grad), ("K3", cuda_viterbi),
+               ("K4", cuda_posterior))
     with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc a source, at once
         jobs = [(name, pool.submit(mod.build)) for name, mod in kernels]
         built = [(name, job.result()) for name, job in jobs]
@@ -350,9 +404,10 @@ def phase_k2(card, dev, m_label, n_ab, n_abc, w, t, seed, reps, k1_ms):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def kernel_split(fn):
-    """Device milliseconds of each K3 kernel in one call of ``fn``, from
-    torch.profiler, as text ("not measured" when it records none)."""
+def kernel_split(fn, names=("viterbi_forward", "viterbi_backtrack")):
+    """Device milliseconds of each kernel of ``names`` (default: K3's two)
+    in one call of ``fn``, from torch.profiler, as text ("not measured"
+    when it records none)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -361,8 +416,7 @@ def kernel_split(fn):
         torch.cuda.synchronize()
     parts = []
     for ev in prof.key_averages():
-        name = next((k for k in ("viterbi_forward", "viterbi_backtrack")
-                     if k in ev.key), None)
+        name = next((k for k in names if k in ev.key), None)
         if name is not None:
             parts.append(f"{name} {ev.device_time_total / 1e3:.3f} ms")
     return " + ".join(sorted(parts)) or "not measured"
@@ -434,6 +488,68 @@ def phase_k3(card, dev, m_label, n_ab, n_abc, w, t, seed, reps, tie=False):
           f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound")
     return {"max_abs_err": float((path - ref).abs().max()), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_k4(card, dev, m_label, n_ab, n_abc, w, t, seed, reps):
+    """K4 against its f64 plain version on the card; returns its record."""
+    import torch
+
+    from itrails_tpu_torch.hmm import cuda_posterior
+
+    a, bfull, pi, _ = build_tables(n_ab, n_abc, dev)
+    m = a.shape[0]
+    tok = padded_tokens(dev, w, t, seed)
+    a32, b32, p32 = (x.float().contiguous() for x in (a, bfull, pi))
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    post, alpha = cuda_posterior.posterior_fused(a32, b32, p32, tok)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    t0 = time.perf_counter()
+    ref, al_ref = cuda_posterior.posterior_fused_plain(a, bfull, pi, tok)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    check(tuple(post.shape) == (t, w, m) and post.dtype == torch.float32,
+          f"K4 {m_label}: misshapen posterior")
+    real = (tok >= 0).T  # (T, W): the columns whose posterior is defined
+    err = sum_err = 0.0
+    finite = True
+    for lo in range(0, t, 512):  # in slices: the f64 differences are large
+        r = real[lo:lo + 512]
+        p = post[lo:lo + 512].double()
+        finite &= bool(torch.isfinite(p[r]).all())
+        err = max(err, float(torch.where(r[:, :, None], (p - ref[lo:lo + 512]).abs(),
+                                         0.0).max()))
+        sum_err = max(sum_err, float(torch.where(r, (p.sum(dim=2) - 1).abs(),
+                                                 0.0).max()))
+    alpha_err = float((alpha.double() - al_ref).abs().max())
+    del ref, p
+    check(finite, f"K4 {m_label}: non-finite posterior")
+    check(err <= POST_ATOL, f"K4 {m_label}: posterior off the plain version by "
+                            f"{err:.3g} (atol {POST_ATOL:g})")
+    check(sum_err <= 1e-5, f"K4 {m_label}: a posterior row sums to 1 +- {sum_err:.3g}")
+    check(alpha_err <= POST_ATOL, f"K4 {m_label}: final alpha off by {alpha_err:.3g}")
+
+    before = cuda_posterior.posterior_fused.launches
+    ms = cuda_ms(lambda: cuda_posterior.posterior_fused(a32, b32, p32, tok), reps)
+    launches = cuda_posterior.posterior_fused.launches - before
+    check(launches == 2 * (reps + 1),
+          f"K4 {m_label}: timed calls did not all launch the kernels")
+    split = kernel_split(lambda: cuda_posterior.posterior_fused(a32, b32, p32, tok),
+                         ("forward_kernel", "k4_reverse_kernel"))
+    bound_ms, bound_by = k4_bound_ms(m, tok)
+    print(f"{card} | phase 2 K4 {m_label} M={m} W={w} T={t}: posterior max abs "
+          f"err {err:.3g} over the non-PAD entries (atol {POST_ATOL:g}, vs the "
+          f"plain f64 version), rows sum to 1 within {sum_err:.3g} (1e-5), "
+          f"final alpha max abs err {alpha_err:.3g}; K4 {ms:.4f} ms (mean of "
+          f"{reps}, 2 launches a call; one call under torch.profiler: {split}),"
+          f" peak device memory of a call {peak} bytes (store "
+          f"{t * w * 4 * 32 * -(-m // 32)} bytes), plain f64 {plain_ms:.1f} ms (one call, host clock, no "
+          f"yardstick), bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{bound_ms / ms:.1%} of bound")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def phase_cli(card, dev, workdir):
@@ -889,6 +1005,209 @@ def phase_segmented(card, dev, cli, best_yaml):
           f"clock), peak device memory of the segmented call {peak} bytes")
 
 
+def phase_posterior_cli(card, dev, workdir, cli, best_yaml):
+    """The posterior path: the posterior CLI at 3x3 on phase 3's MAF, with
+    phase 4's best model as its config, on the card.  Returns K4's launches
+    and the rows it wrote for the long block."""
+    import torch
+
+    from itrails_tpu_torch.cli import decode
+    from itrails_tpu_torch.cli.common import prepare_decode_setup
+    from itrails_tpu_torch.cli.posterior import main
+    from itrails_tpu_torch.config import load_config
+    from itrails_tpu_torch.hmm import cuda_posterior, windows
+
+    v_lst = cli["v_lst"]
+    lengths = [len(v) for v in v_lst]
+    n_states = 27
+    groups = decode.posterior_groups(lengths, n_states)
+    long_blocks = [i for i, n in enumerate(lengths)
+                   if n > decode.LONG_BLOCK_THRESHOLD]
+    check(len(long_blocks) == 1
+          and lengths[long_blocks[0]] <= decode.SEGMENTED_POSTERIOR_THRESHOLD,
+          "phase 8 expects one long block decoded in one pass")
+    out = os.path.join(workdir, "posterior_card", "sim")
+
+    # the long block's f64 reference, on the CPU in a process of its own
+    # while the card runs the CLI
+    tok_path = os.path.join(workdir, "long_block.npy")
+    ref_path = os.path.join(workdir, "long_block_post.npy")
+    np.save(tok_path, np.asarray(v_lst[long_blocks[0]], np.int32))
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    log = open(ref_path + ".log", "w")
+    ref_proc = subprocess.Popen(
+        [sys.executable, "-c", POSTERIOR_REF, best_yaml, tok_path, ref_path],
+        stdout=log, stderr=subprocess.STDOUT, cwd=ROOT, env=env)
+    try:
+        pieces = []
+        seconds = {"decode": 0.0, "writer": 0.0}
+        run, write = decode.run_posterior, decode.write_posterior_csv
+
+        def capture(*args):  # the rows the CLI writes, and the decode's time
+            it = run(*args)
+            while True:
+                t0 = time.perf_counter()
+                item = next(it, None)
+                torch.cuda.synchronize()
+                seconds["decode"] += time.perf_counter() - t0
+                if item is None:
+                    return
+                pieces.append(item)
+                yield item
+
+        def timed_write(*args):
+            t0 = time.perf_counter()
+            write(*args)
+            seconds["writer"] += time.perf_counter() - t0
+
+        decode.run_posterior, decode.write_posterior_csv = capture, timed_write
+        try:
+            cuda_posterior.posterior_fused.calls = 0
+            cuda_posterior.posterior_fused.launches = 0
+            t0 = time.perf_counter()
+            main([best_yaml, "--output", out])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            calls = cuda_posterior.posterior_fused.calls
+            launches = cuda_posterior.posterior_fused.launches
+        finally:
+            decode.run_posterior, decode.write_posterior_csv = run, write
+        t0 = time.perf_counter()
+        rc = ref_proc.wait()
+        ref_wait_s = time.perf_counter() - t0
+    finally:  # no process outlives the phase
+        if ref_proc.poll() is None:
+            ref_proc.kill()
+            ref_proc.wait()
+        log.close()
+    with open(ref_path + ".log") as f:
+        check(rc == 0, f"the long block's reference exited {rc}:\n{f.read()[-2000:]}")
+    check(calls == len(groups) and launches == 2 * len(groups),
+          f"K4 called {calls} times with {launches} launches; the CLI's "
+          f"{len(groups)} window group(s) and long block take {len(groups)} "
+          f"calls and {2 * len(groups)} launches")
+
+    # every column of every block against the f64 plain version
+    blocks = {}
+    for i, rows in pieces:
+        blocks.setdefault(i, []).append(rows)
+    check(sorted(blocks) == list(range(len(v_lst)))
+          and [i for i, _ in pieces] == sorted(i for i, _ in pieces),
+          "the CLI did not hand every block on, in block order")
+    rows = {i: np.concatenate(p) for i, p in blocks.items()}
+    check(all(rows[i].shape == (n, n_states) and rows[i].dtype == np.float32
+              for i, n in enumerate(lengths)), "misshapen posterior rows")
+    setup = prepare_decode_setup(load_config(best_yaml))
+    _, a, bfull, pi = decode.build(setup, "float64", "cpu")
+    a, bfull, pi = (x.to(dev) for x in (a, bfull, pi))
+    _, a32, b32, p32 = decode.build(setup, "float32", dev)
+    errs, per_batch = [], []  # per batch: max abs err, and K4 alone
+    for group in groups:
+        if group == long_blocks:
+            tok = np.asarray(v_lst[group[0]], np.int32)[None, :]
+            errs.append(float(np.abs(rows[group[0]] - np.load(ref_path)).max()))
+        else:
+            tok, _, _ = windows.pack_windows([v_lst[i] for i in group])
+            ref, _ = cuda_posterior.posterior_fused_plain(
+                a, bfull, pi, torch.as_tensor(tok, device=dev))
+            errs.append(max(float((torch.as_tensor(rows[i], device=dev).double()
+                                   - ref[:lengths[i], w]).abs().max())
+                            for w, i in enumerate(group)))
+            del ref
+        tok = torch.as_tensor(tok, device=dev)
+        ms = cuda_ms(lambda: cuda_posterior.posterior_fused(a32, b32, p32, tok), 1)
+        per_batch.append(f"{tuple(tok.shape)} {ms:.2f} ms, max abs err "
+                         f"{errs[-1]:.3g}")
+    err = max(errs)
+    check(err <= POST_ATOL, f"the CLI's posterior is off the f64 plain version "
+                            f"by {err:.3g} (atol {POST_ATOL:g})")
+
+    # the CSV: its header, one line a column, and rows of every block read
+    # back as the card's f32 values widened to f64
+    path = out + ".posterior.csv"
+    starts = np.concatenate([[0], np.cumsum(lengths)])
+    samples = {}
+    for i, n in enumerate(lengths):
+        for k in {0, n // 2, n - 1}:
+            samples[1 + int(starts[i]) + k] = (i, k)
+    n_lines = 0
+    with open(path, newline="") as f:
+        header = f.readline()
+        for n_lines, line in enumerate(f, start=1):
+            if n_lines in samples:
+                i, k = samples[n_lines]
+                fields = line.rstrip("\n").split(",")
+                check(fields[:2] == [str(i), str(k)]
+                      and [float(x) for x in fields[2:]]
+                      == rows[i][k].astype(np.float64).tolist(),
+                      f"CSV line {n_lines} is not block {i} column {k} of the "
+                      "card's posterior")
+    want = ",".join(["alignment_block_idx", "position_idx"]
+                    + [f"prob_state_{j}" for j in range(n_states)]) + "\r\n"
+    check(header == want, f"posterior CSV header {header!r}")
+    check(n_lines == sum(lengths), f"posterior CSV has {n_lines} rows for "
+                                   f"{sum(lengths)} columns")
+    print(f"{card} | phase 8 posterior CLI 3x3 on {sum(lengths)} columns in "
+          f"{len(lengths)} blocks ({len(long_blocks)} long), config "
+          f"{os.path.basename(best_yaml)} of phase 4: {cli_s:.2f} s on the card "
+          f"(host clock) = decode {seconds['decode']:.2f} s (K4 and the copy to "
+          f"the host) + write {seconds['writer'] - seconds['decode']:.2f} s + "
+          f"MAF, build and hidden states "
+          f"{cli_s - seconds['writer']:.2f} s; K4 calls {calls}, launches "
+          f"{launches} ({len(groups)} batch(es)); every column within "
+          f"{err:.3g} of the f64 plain version (atol {POST_ATOL:g}; the long "
+          f"block's reference on the CPU, waited {ref_wait_s:.1f} s after the "
+          f"CLI); K4 alone per batch: {'; '.join(per_batch)}; CSV "
+          f"{os.path.getsize(path)} bytes, header and {n_lines} rows checked, {len(samples)} sampled rows equal to the card's f32 values")
+    return launches, rows[long_blocks[0]]
+
+
+def phase_posterior_segmented(card, dev, cli, best_yaml, one_pass):
+    """The segmented posterior on the card: the 320 kb block in segments,
+    the threshold lowered, against phase 8's one-pass rows."""
+    import torch
+
+    from itrails_tpu_torch.cli import decode
+    from itrails_tpu_torch.cli.common import prepare_decode_setup
+    from itrails_tpu_torch.config import load_config
+    from itrails_tpu_torch.hmm import cuda_posterior, decoders
+
+    setup = prepare_decode_setup(load_config(best_yaml))
+    _, a, bfull, pi = decode.build(setup, "float32", dev)
+    (block,) = [v for v in cli["v_lst"] if len(v) > decode.LONG_BLOCK_THRESHOLD]
+    threshold, seg_cols = SEGMENTS
+    check(len(block) > threshold, "the long block is below the segment threshold")
+    saved = decode.SEGMENTED_POSTERIOR_THRESHOLD, decoders.SEGMENT_COLUMNS
+    decode.SEGMENTED_POSTERIOR_THRESHOLD, decoders.SEGMENT_COLUMNS = SEGMENTS
+    try:
+        cuda_posterior.posterior_fused.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        pieces = [rows for _, rows in decode.run_posterior(a, bfull, pi, [block])]
+        seg_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        launches = cuda_posterior.posterior_fused.launches
+    finally:
+        decode.SEGMENTED_POSTERIOR_THRESHOLD, decoders.SEGMENT_COLUMNS = saved
+    n_seg = -(-(len(block) - 1) // seg_cols)
+    check(len(pieces) == n_seg and launches == 3 * n_seg - 1,
+          f"segmented posterior: {len(pieces)} pieces and {launches} K4 launches "
+          f"for {n_seg} segments")
+    segmented = np.concatenate(pieces)
+    check(segmented.shape == one_pass.shape
+          and np.array_equal(segmented, one_pass),
+          "the segmented posterior differs from the one-pass rows at "
+          f"{int((segmented != one_pass).any(axis=-1).sum())} columns")
+    print(f"{card} | phase 9 segmented posterior on the card: the "
+          f"{len(block)}-column block in {n_seg} segments of {seg_cols} columns "
+          f"({launches} K4 launches: {n_seg - 1} beta sweeps + {n_seg} x 2) "
+          f"equals phase 8's one-pass rows bit for bit; {seg_s:.3f} s (host "
+          f"clock, copies to the host included), peak device memory of the "
+          f"segmented decode {peak} bytes")
+
+
 def main():
     import torch
 
@@ -913,6 +1232,8 @@ def main():
     k3 = [phase_k3(card, dev, *shape, seed=seed, reps=10)
           for seed, shape in enumerate(K1_SHAPES)]
     phase_k3(card, dev, "3x3", 3, 3, *TIE_SHAPE, seed=5, reps=2, tie=True)
+    k4 = [phase_k4(card, dev, *shape, seed=seed, reps=10)
+          for seed, shape in enumerate(K1_SHAPES)]
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
         k1_launches, cli = phase_cli(card, dev, work)
@@ -920,11 +1241,15 @@ def main():
         phase_genome(card, dev)
         k3_launches = phase_viterbi_cli(card, dev, work, cli, best_yaml)
         phase_segmented(card, dev, cli, best_yaml)
+        k4_launches, long_rows = phase_posterior_cli(card, dev, work, cli,
+                                                     best_yaml)
+        phase_posterior_segmented(card, dev, cli, best_yaml, long_rows)
     print(f"{card} | all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     # each record at the genome-scale 3x3 shape of phase 2; launches from
     # the CLI run of its own path (K1: phase 3, K2: phase 4, where each K2
-    # call launches its two kernels, K3: phase 6, two kernels a call)
+    # call launches its two kernels, K3: phase 6, two kernels a call, K4:
+    # phase 8, two kernels a call)
     record = {"kernels": [{
         "name": "k1_forward",
         "route": "cuda",
@@ -949,6 +1274,14 @@ def main():
         "launches": k3_launches,
         "library_ms": None,  # no single PyTorch call computes this function
         **k3[0],
+    }, {
+        "name": "k4_posterior",
+        "route": "cuda",
+        "source": "itrails_tpu_torch/csrc/posterior.cu",
+        "replaces": "itrails_tpu/hmm/pallas_fwd.py:493",
+        "launches": k4_launches,
+        "library_ms": None,  # no single PyTorch call computes the posterior
+        **k4[0],
     }]}
     print(json.dumps(record))
     print(card)

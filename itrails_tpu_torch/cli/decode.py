@@ -1,7 +1,8 @@
-"""The Viterbi decoding workflow (reference workflow_viterbi.py, and
+"""The Viterbi and posterior decoding workflows (reference
+workflow_viterbi.py and workflow_posterior.py, and
 ``itrails_tpu/cli/decode.py`` for the plain family): config resolution,
-model build, hidden-states CSV, decoding on one device, and the segment
-CSV writer, in formats byte-compatible with the reference."""
+model build, hidden-states CSV, decoding on one device, and the segment and
+posterior CSV writers, in formats byte-compatible with the reference."""
 
 from __future__ import annotations
 
@@ -22,10 +23,11 @@ from itrails_tpu_torch.cli.common import (
 from itrails_tpu_torch.core.model import build_model
 from itrails_tpu_torch.data.maf import maf_reference_coordinates, maf_tokens
 from itrails_tpu_torch.data.tokens import aggregation_matrix
-from itrails_tpu_torch.hmm import decoders, windows
+from itrails_tpu_torch.hmm import cuda_posterior, decoders, windows
 
 __all__ = ["TOPOLOGY_MAP", "build", "decode_main", "load_inputs",
-           "run_viterbi", "write_hidden_states", "write_viterbi_csv"]
+           "posterior_groups", "run_posterior", "run_viterbi",
+           "write_hidden_states", "write_posterior_csv", "write_viterbi_csv"]
 
 TOPOLOGY_MAP = {
     0: "({sp1,sp2},sp3)",
@@ -36,9 +38,10 @@ TOPOLOGY_MAP = {
 }
 
 
-def decode_main(argv, description, usage):
-    """main() of the Viterbi CLI: full per-parameter override flags and
-    config-optional invocation (reference workflow_viterbi.py:19-158)."""
+def decode_main(argv, description, usage, posterior):
+    """main() of the Viterbi (``posterior=False``) and posterior CLIs: full
+    per-parameter override flags and config-optional invocation (reference
+    workflow_viterbi.py:19-158)."""
     parser = decode_parser(description, usage=usage)
     parser.add_argument("--version", action="version",
                         version=f"%(prog)s {__version__}")
@@ -53,15 +56,22 @@ def decode_main(argv, description, usage):
     config = merge_decode_overrides(args)
     obs_mode = config["settings"].get("obs_mode") or "standard"
     if obs_mode != "standard":
-        raise ValueError("the Viterbi workflow takes only obs_mode "
+        raise ValueError("the decode workflows take only obs_mode "
                          f"'standard' (4 species), got {obs_mode!r}")
     setup, v_lst, coords, output_dir, output_prefix = load_inputs(config, args)
     print("Calculating transition and emission probability matrices.")
     model, a, bfull, pi = build(setup, args.precision, device)
     write_hidden_states(
         os.path.join(output_dir, f"{output_prefix}.hidden_states.csv"),
-        model, setup,
+        model, setup, first_interval_from_ab=posterior,
     )
+    if posterior:
+        print(f"Running posterior decoding on {device}.")
+        write_posterior_csv(
+            os.path.join(output_dir, f"{output_prefix}.posterior.csv"),
+            run_posterior(a, bfull, pi, v_lst), coords,
+        )
+        return
     print(f"Running viterbi on {device}.")
     results = run_viterbi(a, bfull, pi, v_lst)
     write_viterbi_csv(
@@ -101,10 +111,13 @@ def build(setup, precision="float64", device="cuda"):
     return model, a, bfull, pi
 
 
-def write_hidden_states(path, model, setup):
-    """``<prefix>.hidden_states.csv`` (reference workflow_viterbi.py:636-684):
-    the first-coalescent interval of every state, V0 included, is annotated
-    with the ABC cutpoints, as the reference's Viterbi workflow does."""
+def write_hidden_states(path, model, setup, first_interval_from_ab: bool):
+    """``<prefix>.hidden_states.csv`` (reference workflow_viterbi.py:636-684
+    and workflow_posterior.py): the Viterbi workflow annotates the
+    first-coalescent interval of every state, V0 included, with the ABC
+    cutpoints; the posterior workflow (``first_interval_from_ab``) annotates
+    the V0 states' with the AB cutpoints."""
+    abs_ab = setup["abs_cut_ab"]
     abs_abc = setup["abs_cut_abc"]
     if os.path.exists(path):
         print(f"Warning: File '{path}' already exists.")
@@ -116,10 +129,11 @@ def write_hidden_states(path, model, setup):
                     "interval_2nd_coalescent", "shorthand_name"])
         for idx, state in enumerate(model.hidden_states):
             code, i, j = state
+            cuts = abs_ab if code == 0 and first_interval_from_ab else abs_abc
             w.writerow([
                 idx,
                 TOPOLOGY_MAP.get(code, "Unknown"),
-                f"{abs_abc[i]:.2f}-{abs_abc[i + 1]:.2f}",
+                f"{cuts[i]:.2f}-{cuts[i + 1]:.2f}",
                 f"{abs_abc[j]:.2f}-{abs_abc[j + 1]:.2f}",
                 tuple(state),
             ])
@@ -133,6 +147,10 @@ LONG_BLOCK_THRESHOLD = windows.LONG_BLOCK_THRESHOLD
 # Above this length a block decodes in bounded-memory segments
 # (decoders.viterbi_segmented) instead of with one whole pointer table.
 SEGMENTED_VITERBI_THRESHOLD = 8_388_608
+# Above this length a block's posterior is decoded and streamed in
+# bounded-memory segments (decoders.posterior_segmented) instead of in one
+# pass that holds the whole block's store.
+SEGMENTED_POSTERIOR_THRESHOLD = 8_388_608
 
 
 def _split_by_length(v_lst):
@@ -165,6 +183,60 @@ def run_viterbi(a, bfull, pi, v_lst):
             path = decoders.viterbi_fast(a, bfull, pi, v[None, :])[0]
         out[i] = path.cpu().numpy()
     return out
+
+
+def posterior_groups(lengths, m):
+    """The posterior decode's batches, in block order: runs of consecutive
+    short blocks, each cut so that its padded (W, T_max) batch stays one
+    window group of K4 (``cuda_posterior.window_group``), and each long
+    block alone.  Returns lists of block indices."""
+    groups, cur, t_max = [], [], 0
+    for i, n in enumerate(lengths):
+        if n > LONG_BLOCK_THRESHOLD:
+            groups += [cur, [i]] if cur else [[i]]
+            cur, t_max = [], 0
+            continue
+        if cur and len(cur) + 1 > cuda_posterior.window_group(max(t_max, n), m):
+            groups.append(cur)
+            cur, t_max = [], 0
+        cur.append(i)
+        t_max = max(t_max, n)
+    return groups + [cur] if cur else groups
+
+
+def run_posterior(a, bfull, pi, v_lst):
+    """Posterior decode of every block on the tables' device, as a generator
+    of ``(block_idx, rows)`` in block and column order, rows a (n, M) numpy
+    array in the tables' dtype.  A block above SEGMENTED_POSTERIOR_THRESHOLD
+    comes in several pieces, one per segment.
+
+    Each batch of :func:`posterior_groups` is decoded, copied to the host and
+    handed on before the next one runs, so nothing holds more than one
+    group's or one segment's posterior: the short blocks as padded window
+    groups, each long block as a one-window batch, or in segments above
+    SEGMENTED_POSTERIOR_THRESHOLD."""
+    dev = a.device
+    lengths = [len(v) for v in v_lst]
+    for group in posterior_groups(lengths, a.shape[0]):
+        i = group[0]
+        if lengths[i] <= LONG_BLOCK_THRESHOLD:
+            tokens, _, _ = windows.pack_windows([v_lst[j] for j in group])
+            post = decoders.posterior_fast(
+                a, bfull, pi, torch.as_tensor(tokens, device=dev)).cpu().numpy()
+            for w, j in enumerate(group):
+                yield j, post[: lengths[j], w, :]
+            del post
+            continue
+        v = torch.as_tensor(np.asarray(v_lst[i], np.int32), device=dev)
+        if lengths[i] > SEGMENTED_POSTERIOR_THRESHOLD:
+            for seg in decoders.posterior_segmented(a, bfull, pi, v):
+                rows = seg.cpu().numpy()
+                del seg  # the segment's store goes before the next one runs
+                yield i, rows
+        else:
+            post = decoders.posterior_fast(a, bfull, pi, v[None, :])
+            yield i, post[:, 0, :].cpu().numpy()
+            del post
 
 
 def _rle_rows(block_idx, res, c):
@@ -256,3 +328,43 @@ def write_viterbi_csv(path, results, coords):
             c = None if coords is None else coords[block_idx]
             w.writerows(_rle_rows(block_idx, res, c))
     print(f"Viterbi decoding complete. Results saved to {path}.")
+
+
+# Rows of the posterior CSV formatted and written at once.
+POSTERIOR_CHUNK_ROWS = 1 << 16
+
+
+def write_posterior_csv(path, results, coords):
+    """Per-position per-state probabilities (reference
+    workflow_posterior.py:697-716), byte for byte what
+    ``itrails_tpu/cli/decode.py:351`` writes: a header line from
+    ``csv.writer`` (ending in \\r\\n), then one line per column ending in
+    \\n, each probability widened to f64 and written as ``repr(float)``, and
+    the reference coordinate (-9 for a gap) in the position column when
+    ``coords`` is given.
+
+    ``results`` yields ``(block_idx, rows)`` in block and column order, a
+    block possibly in several pieces (:func:`run_posterior`); each piece is
+    written, in chunks of POSTERIOR_CHUNK_ROWS, before the next is asked
+    for, so the decode and the write take turns."""
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f)
+        block, offset = None, 0
+        for block_idx, rows in results:
+            if block is None:
+                writer.writerow(["alignment_block_idx", "position_idx"]
+                                + [f"prob_state_{i}" for i in range(rows.shape[1])])
+            if block_idx != block:
+                block, offset = block_idx, 0
+            for off in range(0, len(rows), POSTERIOR_CHUNK_ROWS):
+                chunk = np.asarray(rows[off:off + POSTERIOR_CHUNK_ROWS], np.float64)
+                lo = offset + off
+                pos = (range(lo, lo + len(chunk)) if coords is None else
+                       np.asarray(coords[block_idx][lo:lo + len(chunk)]).tolist())
+                f.write("".join(
+                    f"{block_idx},{p}," + ",".join(map(repr, row)) + "\n"
+                    for p, row in zip(pos, chunk.tolist())))
+            offset += len(rows)
+        if block is None:  # no block: the header alone, with no state
+            writer.writerow(["alignment_block_idx", "position_idx"])
+    print(f"Posterior decoding complete. Results saved to {path}.")

@@ -14,6 +14,7 @@ def main(argv=None):
         "Viterbi workflow using iTRAILS-TPU-torch",
         usage=("itrails-tpu-torch-viterbi --config-file CONFIG_FILE --input "
                "PATH_MAF --output OUTPUT_PATH --PARAMETERS"),
+        posterior=False,
     )
 
 

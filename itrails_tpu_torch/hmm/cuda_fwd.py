@@ -25,7 +25,7 @@ import torch
 from itrails_tpu_torch.data.tokens import N_TOKENS, PAD_TOKEN
 from itrails_tpu_torch.hmm._build import BUILD_DIR, CSRC, compile_library
 
-__all__ = ["build", "check_inputs", "column0", "emission_rows",
+__all__ = ["build", "check_inputs", "check_state", "column0", "emission_rows",
            "forward_fused", "forward_fused_plain", "forward_loglik_fused"]
 
 _SRC = CSRC / "fwd.cu"
@@ -81,14 +81,16 @@ def column0(bfull, pi, tok0):
 def check_inputs(name, a, bfull, pi, tokens, max_states):
     """Raise unless the tables and tokens are what a kernel takes: a (W, T)
     int32 token batch and float32 tables a (M, M), bfull (M, 625), pi (M,)
-    with 1 <= M <= ``max_states``, all contiguous on the tokens' device."""
+    (unless it is None: a kernel that does not read it) with
+    1 <= M <= ``max_states``, all contiguous on the tokens' device."""
     dev = tokens.device
     if tokens.dim() != 2 or tokens.dtype != torch.int32:
         raise ValueError(f"{name}: tokens must be a (W, T) int32 tensor, "
                          f"got {tuple(tokens.shape)} {tokens.dtype}")
     m = a.shape[0]
-    expect = {"a": (a, (m, m)), "bfull": (bfull, (m, N_TOKENS)),
-              "pi": (pi, (m,))}
+    expect = {"a": (a, (m, m)), "bfull": (bfull, (m, N_TOKENS))}
+    if pi is not None:
+        expect["pi"] = (pi, (m,))
     for label, (x, shape) in expect.items():
         if x.device != dev or x.dtype != torch.float32:
             raise ValueError(f"{name}: {label} must be float32 on {dev}, "
@@ -105,6 +107,17 @@ def check_inputs(name, a, bfull, pi, tokens, max_states):
                          f"got {m}")
     if tokens.shape[0] == 0 or tokens.shape[1] == 0:
         raise ValueError(f"{name}: empty token batch")
+
+
+def check_state(kernel, name, x, shape, dtype, dev):
+    """Raise unless ``x``, a state a kernel takes in place of one it would
+    compute, is a contiguous ``shape`` tensor of ``dtype`` on ``dev``."""
+    if x.device != dev or x.dtype != dtype:
+        raise ValueError(f"{kernel}: {name} must be {dtype} on {dev}, "
+                         f"got {x.dtype} on {x.device}")
+    if tuple(x.shape) != shape or not x.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be a contiguous "
+                         f"{shape} tensor, got {tuple(x.shape)}")
 
 
 def forward_fused_plain(a, bfull, pi, tokens):

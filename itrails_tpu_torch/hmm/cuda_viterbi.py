@@ -34,7 +34,7 @@ import torch
 
 from itrails_tpu_torch.data.tokens import N_TOKENS, PAD_TOKEN
 from itrails_tpu_torch.hmm._build import BUILD_DIR, CSRC, compile_library
-from itrails_tpu_torch.hmm.cuda_fwd import check_inputs
+from itrails_tpu_torch.hmm.cuda_fwd import check_inputs, check_state
 
 __all__ = ["NEG", "POINTER_BUDGET_BYTES", "build", "column0", "log_tables",
            "viterbi_fused", "viterbi_fused_plain", "window_group"]
@@ -139,15 +139,6 @@ def window_group(t_len: int, m: int) -> int:
     return max(1, POINTER_BUDGET_BYTES // max(1, (t_len - 1) * m))
 
 
-def _check_state_input(name, x, shape, dtype, dev):
-    if x.device != dev or x.dtype != dtype:
-        raise ValueError(f"viterbi_fused: {name} must be {dtype} on {dev}, "
-                         f"got {x.dtype} on {x.device}")
-    if tuple(x.shape) != shape or not x.is_contiguous():
-        raise ValueError(f"viterbi_fused: {name} must be a contiguous "
-                         f"{shape} tensor, got {tuple(x.shape)}")
-
-
 def viterbi_fused(a, bfull, pi, tokens, omega0=None, last=None):
     """Most-probable state path per window, the contract of
     ``itrails_tpu.hmm.pallas_viterbi.viterbi_fused``.
@@ -178,9 +169,9 @@ def viterbi_fused(a, bfull, pi, tokens, omega0=None, last=None):
     w, t_len = tokens.shape
     m = a.shape[0]
     if omega0 is not None:
-        _check_state_input("omega0", omega0, (w, m), torch.float32, dev)
+        check_state("viterbi_fused", "omega0", omega0, (w, m), torch.float32, dev)
     if last is not None:
-        _check_state_input("last", last, (w,), torch.int32, dev)
+        check_state("viterbi_fused", "last", last, (w,), torch.int32, dev)
         if bool(((last < 0) | (last >= m)).any()):  # the kernel indexes by it
             raise ValueError(f"viterbi_fused: last must lie in [0, {m})")
 

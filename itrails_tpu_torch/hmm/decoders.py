@@ -8,6 +8,10 @@ reference decoders: a log-space forward scan with a per-step max shift
 ``viterbi_fast`` is the max-plus decoder the Viterbi CLI calls: kernel K3
 (``hmm/cuda_viterbi.py``) on the card, its plain version on the CPU.
 ``viterbi_segmented`` decodes one long block in bounded memory.
+``posterior_fast`` is the posterior the posterior CLI calls: kernel K4
+(``hmm/cuda_posterior.py``) on the card, its plain version on the CPU;
+``posterior_segmented`` streams one long block's posterior in bounded
+memory.
 
 Padding: windows are right-padded with ``PAD_TOKEN``; padded steps carry
 state through unchanged so every quantity equals the unpadded computation.
@@ -18,13 +22,16 @@ from __future__ import annotations
 import torch
 
 from itrails_tpu_torch.data.tokens import PAD_TOKEN
-from itrails_tpu_torch.hmm import cuda_fwd, cuda_viterbi
+from itrails_tpu_torch.hmm import cuda_fwd, cuda_posterior, cuda_viterbi
 
 __all__ = ["emission_table", "forward", "forward_loglik",
-           "forward_loglik_fast", "viterbi_fast", "viterbi_segmented"]
+           "forward_loglik_fast", "posterior_fast", "posterior_segmented",
+           "viterbi_fast", "viterbi_segmented"]
 
-# Columns of one segment of viterbi_segmented: its pointer table is
-# SEGMENT_COLUMNS x M bytes (27 MB at M = 27, 133 MB at M = 133).
+# Columns of one segment of viterbi_segmented and posterior_segmented: the
+# pointer table of one is SEGMENT_COLUMNS x M bytes (27 MB at M = 27, 133 MB
+# at M = 133), K4's store SEGMENT_COLUMNS x 32S floats (134 MB at M = 27,
+# 671 MB at M = 133).
 SEGMENT_COLUMNS = 1 << 20
 
 
@@ -117,3 +124,59 @@ def viterbi_segmented(a, bfull, pi, tokens):
         path[bounds[k] - 1:bounds[k + 1]] = seg_path
         last = seg_path[:1].contiguous()
     return path
+
+
+def posterior_fast(a, bfull, pi, tokens):
+    """Posterior state probabilities, (T, W, M), of a (W, T) token batch
+    (itrails_tpu/hmm/decoders.py:147 posterior_fast).  On the card this is
+    kernel K4, which takes contiguous float32 tables and int32 tokens, and
+    the result is a view of its store; on the CPU it is K4's plain version
+    (``cuda_posterior.posterior_fused_plain``) in the tables' dtype.
+
+    Padded steps are garbage: mask with ``tokens != PAD_TOKEN``.  The
+    recursion is K4's, a scaled-linear forward and reverse sweep in which
+    the reverse sweep contracts over the source state as the reference does
+    (optimizer.py:210); in f64 it is the reference posterior
+    (itrails_tpu/hmm/decoders.py:209 posterior) up to rounding."""
+    return cuda_posterior.posterior_fused(a, bfull, pi, tokens)[0]
+
+
+def posterior_segmented(a, bfull, pi, tokens):
+    """Posterior of one block, a 1-D token tensor, in bounded memory: yields
+    each segment's (rows, M) posterior in column order, so a writer can
+    stream it (the counterpart of itrails_tpu/hmm/longseq.py:77, which
+    holds the whole block).
+
+    Columns 1..T-1 are cut into segments of SEGMENT_COLUMNS, each decoded as
+    a window that starts one column earlier.  A reverse pass runs K4's beta
+    sweep alone (its plain version on the CPU) over the segments from last
+    to first and keeps only beta at each segment's last column.  A forward
+    pass then runs K4 on one segment at a time, from the alpha the previous
+    segment ended in and the stored exit beta, and hands the segment's rows
+    on before the next segment runs.  Every step's normalization is
+    deterministic from its carry, so the rows are the one-pass rows bit for
+    bit; the device holds one segment's store and one beta a segment."""
+    t_len = tokens.shape[0]
+    bounds = list(range(1, t_len, SEGMENT_COLUMNS)) + [t_len]
+    if len(bounds) <= 2:
+        yield posterior_fast(a, bfull, pi, tokens[None, :])[:, 0, :]
+        return
+
+    def window(k):
+        # segment k covers columns bounds[k]..bounds[k+1]-1; its window
+        # starts at bounds[k]-1, the column of its entry alpha
+        return tokens[None, bounds[k] - 1:bounds[k + 1]]
+
+    n_seg = len(bounds) - 1
+    exits = [None] * n_seg  # beta at each segment's last column: ones last
+    for k in range(n_seg - 1, 0, -1):
+        exits[k - 1] = cuda_posterior.beta_sweep(a, bfull, window(k), exits[k])
+    alpha = None  # segment 0 starts from pi and column 0
+    for k in range(n_seg):
+        post, alpha = cuda_posterior.posterior_fused(
+            a, bfull, pi, window(k), alpha0=alpha, beta_exit=exits[k])
+        rows = post[0 if k == 0 else 1:, 0, :]  # column bounds[k]-1 was sent
+        del post
+        exits[k] = None
+        yield rows
+        del rows

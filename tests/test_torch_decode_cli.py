@@ -1,8 +1,10 @@
-"""The port's Viterbi CLI (``itrails_tpu_torch.cli.viterbi``, ``--device
-cpu``) against the JAX package's (``itrails_tpu.cli.viterbi``) on
+"""The port's decode CLIs (``itrails_tpu_torch.cli.viterbi`` and
+``itrails_tpu_torch.cli.posterior``, ``--device cpu``) against the JAX
+package's (``itrails_tpu.cli.viterbi``, ``itrails_tpu.cli.posterior``) on
 goldens/synthetic.maf: ``viterbi.csv`` and ``hidden_states.csv`` byte for
-byte, and the pieces under it (manual cutpoints in the builder, reference
-coordinates, the override merge)."""
+byte, ``posterior.csv`` column for column, and the pieces under them
+(manual cutpoints in the builder, reference coordinates, the override
+merge)."""
 
 import os
 
@@ -88,6 +90,78 @@ def test_cli_matches_the_jax_cli(case, tmp_path, monkeypatch):
         assert b"330000.00" in hp
 
 
+def _read_posterior_csv(path):
+    """(header line, block and position columns (n, 2) int64, probabilities
+    (n, M) float64) of a posterior CSV."""
+    with open(path, "rb") as f:
+        header = f.readline()
+    table = np.loadtxt(path, delimiter=",", skiprows=1, ndmin=2)
+    return header, table[:, :2].astype(np.int64), table[:, 2:]
+
+
+@pytest.mark.parametrize("case", ["config", "flags", "override", "reference",
+                                  "cutpoints", "long_block"])
+def test_posterior_cli_matches_the_jax_cli(case, tmp_path, monkeypatch):
+    from itrails_tpu.cli import decode as jax_decode
+    from itrails_tpu.cli.posterior import main as jax_main
+    from itrails_tpu_torch.cli import decode as port_decode
+    from itrails_tpu_torch.cli.posterior import main as port_main
+
+    if case == "long_block":  # both blocks one-window batches in the port
+        monkeypatch.setattr(jax_decode, "LONG_BLOCK_THRESHOLD", 36)
+        monkeypatch.setattr(port_decode, "LONG_BLOCK_THRESHOLD", 36)
+    args = _case_args(case, tmp_path)
+    jax_main([*args, "--output", str(tmp_path / "jax" / "run")])
+    port_main([*args, "--output", str(tmp_path / "port" / "run"), "--device",
+               "cpu"])
+    hj, hp = ((tmp_path / side / "run.hidden_states.csv").read_bytes()
+              for side in ("jax", "port"))
+    assert hp == hj and len(hj.splitlines()) == 1 + 11
+    (head_j, pos_j, prob_j), (head_p, pos_p, prob_p) = (
+        _read_posterior_csv(tmp_path / side / "run.posterior.csv")
+        for side in ("jax", "port"))
+    assert head_p == head_j and head_j.endswith(b"prob_state_10\r\n")
+    np.testing.assert_array_equal(pos_p, pos_j)
+    assert len(pos_j) == 105  # one row per column of both blocks
+    np.testing.assert_allclose(prob_p, prob_j, rtol=1e-8, atol=1e-12)
+    np.testing.assert_allclose(prob_p.sum(axis=1), 1.0, rtol=1e-12)
+    if case == "reference":  # hg38's coordinates, gaps as -9
+        assert pos_p[:, 1].max() >= 1000 and (pos_p[:, 1] >= -9).all()
+    if case == "cutpoints":
+        assert b"330000.00" in hp
+
+
+def test_hidden_states_of_the_two_clis(tmp_path):
+    """The Viterbi CLI annotates every state's first interval with the ABC
+    cutpoints, as it did before the posterior CLI came; the posterior CLI
+    annotates the V0 states' with the AB cutpoints; each matches its JAX
+    counterpart byte for byte."""
+    from itrails_tpu.cli.decode import write_hidden_states as jax_write
+    from itrails_tpu.cli.common import prepare_decode_setup as jax_setup
+    from itrails_tpu_torch.cli import decode
+    from itrails_tpu_torch.cli.common import prepare_decode_setup
+
+    cfg = _decode_config()
+    cfg["settings"].update(CUTPOINTS)
+    setup = prepare_decode_setup(cfg)
+    model, _, _, _ = decode.build(setup, "float64", "cpu")
+    lines = {}
+    for posterior in (False, True):
+        port = tmp_path / f"port{posterior}.hidden_states.csv"
+        ref = tmp_path / f"jax{posterior}.hidden_states.csv"
+        decode.write_hidden_states(str(port), model, setup,
+                                   first_interval_from_ab=posterior)
+        jax_write(str(ref), model, jax_setup(yaml.safe_load(yaml.dump(cfg))),
+                  first_interval_from_ab=posterior)
+        assert port.read_bytes() == ref.read_bytes()
+        lines[posterior] = port.read_text().splitlines()
+    changed = [i for i, (v, p) in enumerate(zip(lines[False], lines[True]))
+               if v != p]
+    v0 = [i + 1 for i, s in enumerate(model.hidden_states) if s[0] == 0]
+    assert changed == v0 and v0
+    assert all("240000.00-270000.00" in lines[True][i] for i in v0[:1])
+
+
 def test_cli_without_arguments_exits():
     from itrails_tpu_torch.cli.viterbi import main
 
@@ -97,6 +171,14 @@ def test_cli_without_arguments_exits():
 
 def test_cli_refuses_new_method_mode(tmp_path):
     from itrails_tpu_torch.cli.viterbi import main
+
+    path = _write_config(tmp_path / "c.yaml", settings={"obs_mode": "new-method"})
+    with pytest.raises(ValueError, match="obs_mode"):
+        main([path, "--output", str(tmp_path / "o" / "run"), "--device", "cpu"])
+
+
+def test_posterior_cli_refuses_new_method_mode(tmp_path):
+    from itrails_tpu_torch.cli.posterior import main
 
     path = _write_config(tmp_path / "c.yaml", settings={"obs_mode": "new-method"})
     with pytest.raises(ValueError, match="obs_mode"):

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and it
-never moves work to the CPU unless the caller asks for it."""
+"""The port stands alone: it imports neither JAX, nor the JAX package, nor
+pandas (which the card's machine lacks), and it never moves work to the CPU
+unless the caller asks for it."""
 
 import os
 import pathlib
@@ -40,8 +41,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import itrails_tpu_torch.hmm.grad, itrails_tpu_torch.hmm.cuda_grad\n"
         "import itrails_tpu_torch.cli.viterbi, itrails_tpu_torch.cli.decode\n"
         "import itrails_tpu_torch.hmm.cuda_viterbi\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'itrails_tpu' or m.startswith('itrails_tpu.'))\n"
+        "import itrails_tpu_torch.cli.posterior\n"
+        "import itrails_tpu_torch.hmm.cuda_posterior\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'itrails_tpu', 'pandas'))\n"
         "print(','.join(bad))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -53,14 +56,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_port_sources_name_no_jax_import():
     pattern = re.compile(
         r"^\s*(import jax|from jax|from itrails_tpu[. ]|import itrails_tpu[. ]|"
-        r"import itrails_tpu$)", re.M)
-    offenders = [str(p.relative_to(REPO)) for p in PORT.rglob("*.py")
+        r"import itrails_tpu$|import pandas|from pandas)", re.M)
+    sources = [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]
+    offenders = [str(p.relative_to(REPO)) for p in sources
                  if pattern.search(p.read_text())]
     assert offenders == []
 
 
 @pytest.mark.parametrize("entry", ["engine", "builder", "cli", "grad",
-                                   "convert", "viterbi"])
+                                   "convert", "viterbi", "posterior"])
 def test_entry_points_refuse_cpu_without_being_asked(entry, no_card, tmp_path):
     if entry == "engine":
         from itrails_tpu_torch.optim.optimizer import LoglikEngine
@@ -84,6 +88,11 @@ def test_entry_points_refuse_cpu_without_being_asked(entry, no_card, tmp_path):
             main([str(tmp_path / "missing.yaml")])  # the default: gradients
     elif entry == "viterbi":
         from itrails_tpu_torch.cli.viterbi import main
+
+        def call():
+            main([str(tmp_path / "missing.yaml")])
+    elif entry == "posterior":
+        from itrails_tpu_torch.cli.posterior import main
 
         def call():
             main([str(tmp_path / "missing.yaml")])
@@ -197,3 +206,38 @@ def test_k3_wrapper_raises_on_inputs_it_does_not_take(cuda_device):
     assert cuda_viterbi.viterbi_fused.launches == before
     cuda_viterbi.viterbi_fused(a, bfull, pi, tok)
     assert cuda_viterbi.viterbi_fused.launches == before + 2
+
+
+@pytest.mark.gpu
+def test_k4_wrapper_raises_on_inputs_it_does_not_take(cuda_device):
+    from itrails_tpu_torch.hmm import cuda_posterior
+
+    m = 27
+    a = torch.full((m, m), 1.0 / m, device=cuda_device)
+    bfull = torch.full((m, 625), 0.01, device=cuda_device)
+    pi = torch.full((m,), 1.0 / m, device=cuda_device)
+    tok = torch.zeros((2, 5), dtype=torch.int32, device=cuda_device)
+    before = cuda_posterior.posterior_fused.launches
+    with pytest.raises(ValueError, match="float32"):
+        cuda_posterior.posterior_fused(a.double(), bfull, pi, tok)
+    with pytest.raises(ValueError, match="int32"):
+        cuda_posterior.posterior_fused(a, bfull, pi, tok.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_posterior.posterior_fused(a.T, bfull, pi, tok)
+    with pytest.raises(ValueError, match="states"):
+        big = torch.full((225, 225), 1.0 / 225, device=cuda_device)
+        cuda_posterior.posterior_fused(
+            big, torch.full((225, 625), 0.01, device=cuda_device),
+            torch.full((225,), 1.0 / 225, device=cuda_device), tok)
+    with pytest.raises(ValueError, match="alpha0"):
+        cuda_posterior.posterior_fused(a, bfull, pi, tok,
+                                       alpha0=torch.zeros((2, m), device="cpu"))
+    with pytest.raises(ValueError, match="beta_exit"):
+        cuda_posterior.beta_sweep(a, bfull, tok,
+                                  beta_exit=torch.zeros((3, m), device=cuda_device))
+    with pytest.raises(ValueError, match="float32"):
+        cuda_posterior.beta_sweep(a, bfull.double(), tok)
+    assert cuda_posterior.posterior_fused.launches == before
+    cuda_posterior.posterior_fused(a, bfull, pi, tok)
+    cuda_posterior.beta_sweep(a, bfull, tok)
+    assert cuda_posterior.posterior_fused.launches == before + 3
