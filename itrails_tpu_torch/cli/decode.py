@@ -365,6 +365,7 @@ def write_posterior_csv(path, results, coords):
                     f"{block_idx},{p}," + ",".join(map(repr, row)) + "\n"
                     for p, row in zip(pos, chunk.tolist())))
             offset += len(rows)
+            del rows  # the piece's group or segment goes before the next decode
         if block is None:  # no block: the header alone, with no state
             writer.writerow(["alignment_block_idx", "position_idx"])
     print(f"Posterior decoding complete. Results saved to {path}.")
