@@ -21,7 +21,10 @@ power limit):
    exactly, with its peak pointer-table bytes; then K4 against its f64
    plain version on the card at the same shapes, every non-PAD entry at
    atol 2e-5 and every non-PAD column's posterior summing to 1 within
-   1e-5, with its peak device bytes;
+   1e-5, with its peak device bytes, and K4's error (no gate) on tokens
+   simulated from the 3x3 model with its recombination rate scaled down,
+   so that one state's runs grow from ~630 columns to ~63,000, split into
+   the f32 rounding of the tables and K4's f32 arithmetic;
 3. the value-only path: ``itrails_tpu_torch.cli.optimize.main --no-grad``
    (Nelder-Mead) at 3x3 on a MAF simulated from the 3x3 model (1.32 M
    columns: 100 blocks of 10 kb and one 320 kb block), with K1's launch
@@ -54,7 +57,8 @@ power limit):
    read back as the card's f32 values; seconds split into decode and
    write;
 9. the segmented posterior: the 320 kb block in 65,536-column segments
-   (the threshold lowered) must give phase 8's one-pass rows bit for bit.
+   (the store budget lowered below one window of it) must give phase 8's
+   one-pass rows bit for bit.
 
 Any failure exits non-zero.  The last two lines are the kernels' JSON
 record and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -93,11 +97,16 @@ GRAD_RTOL = 2e-3
 # phase 2: K3 on a 3x3 model with two exchangeable states, windows x columns
 TIE_SHAPE = (512, 2048)
 # phases 7 and 9: the segment threshold and segment length the 320 kb block
-# gets
+# gets (phase 9 lowers K4's store budget to one window of the threshold's
+# columns)
 SEGMENTS = (262_145, 65_536)
 # phase 2: K4 against its f64 plain version, per non-PAD entry, as
 # tests/test_pallas_fwd.py:78 holds the TPU kernel against the scan
 POST_ATOL = 2e-5
+# phase 2: K4's f32 error as one state's runs grow: the recombination rates
+# (START's r scaled) and the windows x columns simulated from each model
+RUN_RATES = (1.0, 0.1, 0.01)
+RUN_SHAPE = (64, 32_768)
 # the f64 posterior of one block, on the CPU (phase 8's long block)
 POSTERIOR_REF = (
     "import sys\n"
@@ -550,6 +559,45 @@ def phase_k4(card, dev, m_label, n_ab, n_abc, w, t, seed, reps):
           f"{bound_ms / ms:.1%} of bound")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_k4_run_lengths(card, dev):
+    """K4's f32 error against its f64 plain version as one state's runs
+    grow: tokens simulated from the 3x3 model at START with r scaled by
+    RUN_RATES (slower switching, longer runs).  A reading for the record
+    of how far a model that switches more rarely than phase 8's takes the
+    error past POST_ATOL, split into the part that the f32 rounding of the
+    tables alone makes (the f64 plain version on the f32-rounded tables)
+    and the part that K4's f32 arithmetic adds on those tables."""
+    import torch
+
+    from itrails_tpu_torch.data.simulate import simulate_token_batch
+    from itrails_tpu_torch.hmm import cuda_posterior
+
+    parts = []
+    for r in RUN_RATES:
+        a, bfull, pi, b = build_tables(3, 3, dev, start_params(3, 3, r=r))
+        run = float(1 / (pi * (1 - torch.diagonal(a))).sum())
+        gen = torch.Generator(device=dev).manual_seed(21)
+        tok = simulate_token_batch(a, b, pi, *RUN_SHAPE, gen)
+        tables = [x.float().contiguous() for x in (a, bfull, pi)]
+        post, _ = cuda_posterior.posterior_fused(*tables, tok)
+        check(bool(torch.isfinite(post).all()), f"K4 at r={r:g}: non-finite posterior")
+        ref, _ = cuda_posterior.posterior_fused_plain(a, bfull, pi, tok)
+        err = float((post.double() - ref).abs().max())
+        rounded, _ = cuda_posterior.posterior_fused_plain(
+            *(x.double() for x in tables), tok)
+        table_err = float((rounded - ref).abs().max())
+        del ref
+        arith_err = float((post.double() - rounded).abs().max())
+        del post, rounded
+        parts.append(f"r={r:g}: mean run {run:.0f} columns, max abs err {err:.3g}"
+                     f" (f32 tables alone {table_err:.3g}, K4's f32 arithmetic "
+                     f"on them {arith_err:.3g})")
+    print(f"{card} | phase 2 K4 3x3 f32 error as switching slows "
+          f"({RUN_SHAPE[0]} x {RUN_SHAPE[1]} columns simulated from each "
+          f"model, against the f64 plain version, no gate; atol {POST_ATOL:g}"
+          f" elsewhere): " + "; ".join(parts))
 
 
 def phase_cli(card, dev, workdir):
@@ -1015,16 +1063,19 @@ def phase_posterior_cli(card, dev, workdir, cli, best_yaml):
     from itrails_tpu_torch.cli.common import prepare_decode_setup
     from itrails_tpu_torch.cli.posterior import main
     from itrails_tpu_torch.config import load_config
-    from itrails_tpu_torch.hmm import cuda_posterior, windows
+    from itrails_tpu_torch.hmm import cuda_posterior, decoders, windows
 
     v_lst = cli["v_lst"]
     lengths = [len(v) for v in v_lst]
     n_states = 27
-    groups = decode.posterior_groups(lengths, n_states)
+    row_bytes = cuda_posterior.store_row_bytes(n_states, dev, torch.float32)
+    groups = decoders.posterior_groups(lengths, row_bytes,
+                                       decode.LONG_BLOCK_THRESHOLD)
     long_blocks = [i for i, n in enumerate(lengths)
                    if n > decode.LONG_BLOCK_THRESHOLD]
     check(len(long_blocks) == 1
-          and lengths[long_blocks[0]] <= decode.SEGMENTED_POSTERIOR_THRESHOLD,
+          and lengths[long_blocks[0]] * row_bytes
+          <= cuda_posterior.POSTERIOR_BUDGET_BYTES,
           "phase 8 expects one long block decoded in one pass")
     out = os.path.join(workdir, "posterior_card", "sim")
 
@@ -1165,7 +1216,7 @@ def phase_posterior_cli(card, dev, workdir, cli, best_yaml):
 
 def phase_posterior_segmented(card, dev, cli, best_yaml, one_pass):
     """The segmented posterior on the card: the 320 kb block in segments,
-    the threshold lowered, against phase 8's one-pass rows."""
+    the store budget lowered, against phase 8's one-pass rows."""
     import torch
 
     from itrails_tpu_torch.cli import decode
@@ -1178,8 +1229,10 @@ def phase_posterior_segmented(card, dev, cli, best_yaml, one_pass):
     (block,) = [v for v in cli["v_lst"] if len(v) > decode.LONG_BLOCK_THRESHOLD]
     threshold, seg_cols = SEGMENTS
     check(len(block) > threshold, "the long block is below the segment threshold")
-    saved = decode.SEGMENTED_POSTERIOR_THRESHOLD, decoders.SEGMENT_COLUMNS
-    decode.SEGMENTED_POSTERIOR_THRESHOLD, decoders.SEGMENT_COLUMNS = SEGMENTS
+    budget = threshold * cuda_posterior.store_row_bytes(a.shape[0], dev, a.dtype)
+    saved = cuda_posterior.POSTERIOR_BUDGET_BYTES, decoders.SEGMENT_COLUMNS
+    cuda_posterior.POSTERIOR_BUDGET_BYTES, decoders.SEGMENT_COLUMNS = (budget,
+                                                                       seg_cols)
     try:
         cuda_posterior.posterior_fused.launches = 0
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1190,7 +1243,7 @@ def phase_posterior_segmented(card, dev, cli, best_yaml, one_pass):
         peak = torch.cuda.max_memory_allocated(dev) - base
         launches = cuda_posterior.posterior_fused.launches
     finally:
-        decode.SEGMENTED_POSTERIOR_THRESHOLD, decoders.SEGMENT_COLUMNS = saved
+        cuda_posterior.POSTERIOR_BUDGET_BYTES, decoders.SEGMENT_COLUMNS = saved
     n_seg = -(-(len(block) - 1) // seg_cols)
     check(len(pieces) == n_seg and launches == 3 * n_seg - 1,
           f"segmented posterior: {len(pieces)} pieces and {launches} K4 launches "
@@ -1234,6 +1287,7 @@ def main():
     phase_k3(card, dev, "3x3", 3, 3, *TIE_SHAPE, seed=5, reps=2, tie=True)
     k4 = [phase_k4(card, dev, *shape, seed=seed, reps=10)
           for seed, shape in enumerate(K1_SHAPES)]
+    phase_k4_run_lengths(card, dev)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
         k1_launches, cli = phase_cli(card, dev, work)

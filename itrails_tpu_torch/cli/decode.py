@@ -23,10 +23,10 @@ from itrails_tpu_torch.cli.common import (
 from itrails_tpu_torch.core.model import build_model
 from itrails_tpu_torch.data.maf import maf_reference_coordinates, maf_tokens
 from itrails_tpu_torch.data.tokens import aggregation_matrix
-from itrails_tpu_torch.hmm import cuda_posterior, decoders, windows
+from itrails_tpu_torch.hmm import decoders, windows
 
 __all__ = ["TOPOLOGY_MAP", "build", "decode_main", "load_inputs",
-           "posterior_groups", "run_posterior", "run_viterbi",
+           "run_posterior", "run_viterbi",
            "write_hidden_states", "write_posterior_csv", "write_viterbi_csv"]
 
 TOPOLOGY_MAP = {
@@ -147,10 +147,6 @@ LONG_BLOCK_THRESHOLD = windows.LONG_BLOCK_THRESHOLD
 # Above this length a block decodes in bounded-memory segments
 # (decoders.viterbi_segmented) instead of with one whole pointer table.
 SEGMENTED_VITERBI_THRESHOLD = 8_388_608
-# Above this length a block's posterior is decoded and streamed in
-# bounded-memory segments (decoders.posterior_segmented) instead of in one
-# pass that holds the whole block's store.
-SEGMENTED_POSTERIOR_THRESHOLD = 8_388_608
 
 
 def _split_by_length(v_lst):
@@ -185,58 +181,13 @@ def run_viterbi(a, bfull, pi, v_lst):
     return out
 
 
-def posterior_groups(lengths, m):
-    """The posterior decode's batches, in block order: runs of consecutive
-    short blocks, each cut so that its padded (W, T_max) batch stays one
-    window group of K4 (``cuda_posterior.window_group``), and each long
-    block alone.  Returns lists of block indices."""
-    groups, cur, t_max = [], [], 0
-    for i, n in enumerate(lengths):
-        if n > LONG_BLOCK_THRESHOLD:
-            groups += [cur, [i]] if cur else [[i]]
-            cur, t_max = [], 0
-            continue
-        if cur and len(cur) + 1 > cuda_posterior.window_group(max(t_max, n), m):
-            groups.append(cur)
-            cur, t_max = [], 0
-        cur.append(i)
-        t_max = max(t_max, n)
-    return groups + [cur] if cur else groups
-
-
 def run_posterior(a, bfull, pi, v_lst):
     """Posterior decode of every block on the tables' device, as a generator
-    of ``(block_idx, rows)`` in block and column order, rows a (n, M) numpy
-    array in the tables' dtype.  A block above SEGMENTED_POSTERIOR_THRESHOLD
-    comes in several pieces, one per segment.
-
-    Each batch of :func:`posterior_groups` is decoded, copied to the host and
-    handed on before the next one runs, so nothing holds more than one
-    group's or one segment's posterior: the short blocks as padded window
-    groups, each long block as a one-window batch, or in segments above
-    SEGMENTED_POSTERIOR_THRESHOLD."""
-    dev = a.device
-    lengths = [len(v) for v in v_lst]
-    for group in posterior_groups(lengths, a.shape[0]):
-        i = group[0]
-        if lengths[i] <= LONG_BLOCK_THRESHOLD:
-            tokens, _, _ = windows.pack_windows([v_lst[j] for j in group])
-            post = decoders.posterior_fast(
-                a, bfull, pi, torch.as_tensor(tokens, device=dev)).cpu().numpy()
-            for w, j in enumerate(group):
-                yield j, post[: lengths[j], w, :]
-            del post
-            continue
-        v = torch.as_tensor(np.asarray(v_lst[i], np.int32), device=dev)
-        if lengths[i] > SEGMENTED_POSTERIOR_THRESHOLD:
-            for seg in decoders.posterior_segmented(a, bfull, pi, v):
-                rows = seg.cpu().numpy()
-                del seg  # the segment's store goes before the next one runs
-                yield i, rows
-        else:
-            post = decoders.posterior_fast(a, bfull, pi, v[None, :])
-            yield i, post[:, 0, :].cpu().numpy()
-            del post
+    of ``(block_idx, rows)`` in block and column order
+    (``decoders.posterior_stream``, with this CLI's LONG_BLOCK_THRESHOLD): a
+    block may come in several pieces, and nothing holds more than one window
+    group's or one segment's posterior."""
+    return decoders.posterior_stream(a, bfull, pi, v_lst, LONG_BLOCK_THRESHOLD)
 
 
 def _rle_rows(block_idx, res, c):

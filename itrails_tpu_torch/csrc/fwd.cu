@@ -206,7 +206,8 @@ __device__ __forceinline__ float forward_step(const Mat<S>& am,
 
 // The forward recurrence over columns 1..T-1 of every window.  With
 // TC > 0 it also writes the carry before columns 1, 1 + TC, 1 + 2 TC, ...
-// into chk; a null alpha_out skips the final alpha.
+// into chk; a null alpha_out skips the final alpha, and a null ll_out the
+// loglik (ll0 is then not read).
 template <int S, int TC>
 __global__ void __launch_bounds__(kFwdWarps * 32, kFwdBlocksPerSM)
 forward_kernel(const float* __restrict__ a,     // (M, M) row-major
@@ -215,7 +216,7 @@ forward_kernel(const float* __restrict__ a,     // (M, M) row-major
                const float* __restrict__ ll0,   // (W,) log-norm of col 0
                const int* __restrict__ tokens,  // (W, T), PAD = -1
                float* __restrict__ alpha_out,   // (W, M) or null
-               float* __restrict__ ll_out,      // (W,)
+               float* __restrict__ ll_out,      // (W,) or null
                float* __restrict__ chk,         // (n_chunks, W, 32*S), TC > 0
                int W, int T, int M) {
   constexpr int MP = 32 * S;
@@ -247,7 +248,7 @@ forward_kernel(const float* __restrict__ a,     // (M, M) row-major
   int tok = __shfl_sync(kFull, cur, 0);
   float e[S];
   load_emission<S>(e, bt, tok, lane);
-  float ll = ll0[w];
+  float ll = ll_out != nullptr ? ll0[w] : 0.f;
   float comp = 0.f;  // Kahan compensation of ll
 
   for (int t = 1; t < T; ++t) {
@@ -270,10 +271,12 @@ forward_kernel(const float* __restrict__ a,     // (M, M) row-major
 #pragma unroll
       for (int k = 0; k < S; ++k) al[lane + 32 * k] = alpha[k];
       __syncwarp();
-      const float y = logf(s) - comp;
-      const float sum = ll + y;
-      comp = (sum - ll) - y;
-      ll = sum;
+      if (ll_out != nullptr) {
+        const float y = logf(s) - comp;
+        const float sum = ll + y;
+        comp = (sum - ll) - y;
+        ll = sum;
+      }
     }
 
     if (off == 31) {
@@ -293,7 +296,7 @@ forward_kernel(const float* __restrict__ a,     // (M, M) row-major
       if (j < M) alpha_out[static_cast<size_t>(w) * M + j] = alpha[k];
     }
   }
-  if (lane == 0) ll_out[w] = ll;
+  if (ll_out != nullptr && lane == 0) ll_out[w] = ll;
 }
 
 // Dynamic shared memory of forward_kernel: a (S > 1) and one alpha row a warp.

@@ -25,14 +25,15 @@
 // columns at M = 27 need ~1.6 ms.  The recursion is sequential in t in
 // both directions, so the parallelism is across windows.  The alpha store
 // (written by the forward, read back and overwritten with gamma by the
-// reverse sweep) is a cost of this design, not of the function; the
-// wrapper splits a batch into window groups under a byte budget.
+// reverse sweep) is a cost of this design, not of the function; its
+// callers split a batch into window groups under a byte budget
+// (hmm/decoders.py:posterior_stream).
 //
 // Design (simple and exact first):
 // * the forward is K1's own kernel (csrc/fwd.cu, included below),
-//   instantiated with a checkpoint every column (TC = 1): it writes alpha_t
-//   into row t of the store (T, W, 32S) for t < T-1 and the final alpha
-//   into a (W, M) tensor, so K4's alpha are K1's bits;
+//   instantiated with a checkpoint every column (TC = 1) and no loglik: it
+//   writes alpha_t into row t of the store (T, W, 32S) for t < T-1 and the
+//   final alpha into a (W, M) tensor, so K4's alpha are K1's bits;
 // * the reverse kernel has K1's shape: one warp per window, eight windows
 //   per block, lane l owning states l, l+32, ...; beta lives in registers
 //   and in a per-warp shared row that Mat::at_x reads (a in registers at
@@ -42,7 +43,8 @@
 //   bt = bfull^T (625, 32S), one step ahead;
 // * with a null store the reverse kernel is the beta sweep alone: it reads
 //   no alpha and writes no gamma, and returns beta at the window's first
-//   column (the segmented route's reverse pass).
+//   column (the segmented route's reverse pass); with a store, beta at
+//   the first column is written only where the caller asks for it.
 //
 // Launch contract: the C entry points enqueue on the given stream, do not
 // synchronize, allocate nothing, and return cudaGetLastError().
@@ -52,7 +54,8 @@
 namespace {
 
 // The reverse sweep over columns T-1..0 of every window: gamma over the
-// alpha store (unless it is null) and beta at column 0.
+// alpha store (unless it is null) and beta at column 0 (unless
+// beta_first is null).
 template <int S>
 __global__ void __launch_bounds__(kFwdWarps * 32)
 k4_reverse_kernel(const float* __restrict__ a,          // (M, M) row-major
@@ -61,7 +64,7 @@ k4_reverse_kernel(const float* __restrict__ a,          // (M, M) row-major
                   const float* __restrict__ beta_exit,  // (W, M) or null: ones
                   const float* __restrict__ alpha_fin,  // (W, M) alpha_{T-1}
                   float* __restrict__ store,            // (T, W, 32*S) or null
-                  float* __restrict__ beta_first,       // (W, M)
+                  float* __restrict__ beta_first,       // (W, M) or null
                   int W, int T, int M) {
   constexpr int MP = 32 * S;
   extern __shared__ float4 smem4[];
@@ -152,24 +155,25 @@ k4_reverse_kernel(const float* __restrict__ a,          // (M, M) row-major
     }
   }
 
+  if (beta_first != nullptr) {
 #pragma unroll
-  for (int k = 0; k < S; ++k) {
-    const int j = lane + 32 * k;
-    if (j < M) beta_first[static_cast<size_t>(w) * M + j] = beta[k];
+    for (int k = 0; k < S; ++k) {
+      const int j = lane + 32 * k;
+      if (j < M) beta_first[static_cast<size_t>(w) * M + j] = beta[k];
+    }
   }
 }
 
 template <int S>
 int launch_forward(const float* a, const float* bt, const float* al0,
-                   const float* ll0, const int* tokens, float* store,
-                   float* alpha_fin, float* ll_out, int W, int T, int M,
-                   cudaStream_t stream) {
+                   const int* tokens, float* store, float* alpha_fin, int W,
+                   int T, int M, cudaStream_t stream) {
   const size_t smem = forward_smem<S>();
   const cudaError_t err = allow_smem(forward_kernel<S, 1>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   forward_kernel<S, 1><<<(W + kFwdWarps - 1) / kFwdWarps, kFwdWarps * 32, smem,
-                         stream>>>(a, bt, al0, ll0, tokens, alpha_fin, ll_out,
-                                   store, W, T, M);
+                         stream>>>(a, bt, al0, nullptr, tokens, alpha_fin,
+                                   nullptr, store, W, T, M);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -197,29 +201,27 @@ int k4_table_width(int M) { return 32 * ((M + 31) / 32); }
 int k4_max_states() { return 32 * kMaxS; }
 
 // The forward: alpha_t into store row t for t < T-1, alpha_{T-1} into
-// alpha_fin (W, M).  ll0 (W,) is read and ll_out (W,) written (K1's
-// loglik, which the posterior does not use).
+// alpha_fin (W, M).
 int k4_forward(const float* a, const float* bt, const float* al0,
-               const float* ll0, const int* tokens, float* store,
-               float* alpha_fin, float* ll_out, int W, int T, int M,
-               void* stream) {
+               const int* tokens, float* store, float* alpha_fin, int W,
+               int T, int M, void* stream) {
   if (W < 1 || T < 1 || M < 1 || M > 32 * kMaxS)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((M + 31) / 32) {
-    case 1: return launch_forward<1>(a, bt, al0, ll0, tokens, store, alpha_fin, ll_out, W, T, M, s);
-    case 2: return launch_forward<2>(a, bt, al0, ll0, tokens, store, alpha_fin, ll_out, W, T, M, s);
-    case 3: return launch_forward<3>(a, bt, al0, ll0, tokens, store, alpha_fin, ll_out, W, T, M, s);
-    case 4: return launch_forward<4>(a, bt, al0, ll0, tokens, store, alpha_fin, ll_out, W, T, M, s);
-    case 5: return launch_forward<5>(a, bt, al0, ll0, tokens, store, alpha_fin, ll_out, W, T, M, s);
-    case 6: return launch_forward<6>(a, bt, al0, ll0, tokens, store, alpha_fin, ll_out, W, T, M, s);
-    default: return launch_forward<7>(a, bt, al0, ll0, tokens, store, alpha_fin, ll_out, W, T, M, s);
+    case 1: return launch_forward<1>(a, bt, al0, tokens, store, alpha_fin, W, T, M, s);
+    case 2: return launch_forward<2>(a, bt, al0, tokens, store, alpha_fin, W, T, M, s);
+    case 3: return launch_forward<3>(a, bt, al0, tokens, store, alpha_fin, W, T, M, s);
+    case 4: return launch_forward<4>(a, bt, al0, tokens, store, alpha_fin, W, T, M, s);
+    case 5: return launch_forward<5>(a, bt, al0, tokens, store, alpha_fin, W, T, M, s);
+    case 6: return launch_forward<6>(a, bt, al0, tokens, store, alpha_fin, W, T, M, s);
+    default: return launch_forward<7>(a, bt, al0, tokens, store, alpha_fin, W, T, M, s);
   }
 }
 
 // The reverse sweep: gamma over the store (alpha_fin gives alpha_{T-1})
-// and beta at column 0 into beta_first (W, M).  A null store sweeps beta
-// alone; a null beta_exit starts from ones.
+// and beta at column 0 into beta_first (W, M) unless it is null.  A null
+// store sweeps beta alone; a null beta_exit starts from ones.
 int k4_reverse(const float* a, const float* bt, const int* tokens,
                const float* beta_exit, const float* alpha_fin, float* store,
                float* beta_first, int W, int T, int M, void* stream) {

@@ -25,9 +25,10 @@ that the kernel does not take raises.  It takes an entry alpha in place of
 column 0 and an exit beta in place of the ones, and :func:`beta_sweep` runs
 the reverse sweep alone; the segmented route
 (``hmm/decoders.py:posterior_segmented``) needs all three.  A call holds
-one (T, W, 32S) float32 store on the card, the alpha that the reverse sweep
-overwrites with gamma; callers keep it under POSTERIOR_BUDGET_BYTES with
-:func:`window_group`.
+one store, the alpha that the reverse sweep overwrites with gamma: (T, W,
+32S) float32 on the card, (T, W, M) in the tables' dtype in the plain
+version.  Callers keep it under POSTERIOR_BUDGET_BYTES with
+:func:`store_row_bytes` and :func:`window_group`.
 
 The kernel is compiled with ``nvcc`` for ``sm_90a`` at its first use
 (``hmm/_build.py``) and loaded with ``ctypes``.
@@ -45,12 +46,13 @@ from itrails_tpu_torch.hmm.cuda_fwd import (check_inputs, check_state, column0,
                                             emission_rows)
 
 __all__ = ["POSTERIOR_BUDGET_BYTES", "beta_sweep", "beta_sweep_plain", "build",
-           "posterior_fused", "posterior_fused_plain", "window_group"]
+           "posterior_fused", "posterior_fused_plain", "store_row_bytes",
+           "window_group"]
 
 _SRC = CSRC / "posterior.cu"
-# Bytes of one window group's store on the card (W_g x T x 32S float32):
-# 4096 windows of 8192 columns at M <= 32.  A single window above it takes
-# a group of its own.
+# Bytes of one call's store: on the card 4096 windows of 8192 columns at
+# M <= 32.  A single window above it is decoded in segments
+# (hmm/decoders.py:posterior_stream).
 POSTERIOR_BUDGET_BYTES = 1 << 32
 # Columns whose emission rows the plain version gathers at once.
 _CHUNK = 1024
@@ -69,7 +71,7 @@ def _library():
         path, _ = build()
         lib = ctypes.CDLL(str(path))
         lib.k4_forward.restype = ctypes.c_int
-        lib.k4_forward.argtypes = ([ctypes.c_void_p] * 8
+        lib.k4_forward.argtypes = ([ctypes.c_void_p] * 6
                                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         lib.k4_reverse.restype = ctypes.c_int
         lib.k4_reverse.argtypes = ([ctypes.c_void_p] * 7
@@ -153,11 +155,20 @@ def beta_sweep_plain(a, bfull, tokens, beta_exit=None):
     return _reverse_plain(a, bfull, tokens, None, beta_exit)
 
 
-def window_group(t_len: int, m: int) -> int:
-    """Windows of T = ``t_len`` columns per call: as many as keep the
-    card's store within POSTERIOR_BUDGET_BYTES, at least one."""
-    row = 4 * 32 * -(-m // 32)  # one column of one window: 32S floats
-    return max(1, POSTERIOR_BUDGET_BYTES // max(1, t_len * row))
+def store_row_bytes(m: int, device, dtype) -> int:
+    """Bytes of the store that one column of one window takes in a call on
+    ``device`` with tables of ``dtype``: 32S float32 on the card, M of the
+    tables' dtype in the plain version."""
+    if torch.device(device).type == "cuda":
+        return 4 * 32 * -(-m // 32)
+    return m * torch.empty((), dtype=dtype).element_size()
+
+
+def window_group(t_len: int, row_bytes: int) -> int:
+    """Windows of T = ``t_len`` columns per call, for a store of
+    ``row_bytes`` a column (:func:`store_row_bytes`): as many as keep it
+    within POSTERIOR_BUDGET_BYTES, at least one."""
+    return max(1, POSTERIOR_BUDGET_BYTES // max(1, t_len * row_bytes))
 
 
 def _prepare(name, a, bfull, pi, tokens, beta_exit):
@@ -216,21 +227,14 @@ def posterior_fused(a, bfull, pi, tokens, alpha0=None, beta_exit=None):
         store = torch.empty((t_len, w, bt.shape[1]), dtype=torch.float32,
                             device=dev)
         alpha = torch.empty((w, m), dtype=torch.float32, device=dev)
-        # the kernels' outputs that the posterior does not use: beta at
-        # column 0, and K1's loglik from a zero column-0 term
-        beta0 = torch.empty((w, m), dtype=torch.float32, device=dev)
-        ll0 = torch.zeros((w,), dtype=torch.float32, device=dev)
-        ll = torch.empty((w,), dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         _check_rc(lib, lib.k4_forward(
-            a.data_ptr(), bt.data_ptr(), al0.data_ptr(), ll0.data_ptr(),
-            tokens.data_ptr(), store.data_ptr(), alpha.data_ptr(),
-            ll.data_ptr(), w, t_len, m, stream))
+            a.data_ptr(), bt.data_ptr(), al0.data_ptr(), tokens.data_ptr(),
+            store.data_ptr(), alpha.data_ptr(), w, t_len, m, stream))
         posterior_fused.launches += 1
         _check_rc(lib, lib.k4_reverse(
             a.data_ptr(), bt.data_ptr(), tokens.data_ptr(), _ptr(beta_exit),
-            alpha.data_ptr(), store.data_ptr(), beta0.data_ptr(), w, t_len, m,
-            stream))
+            alpha.data_ptr(), store.data_ptr(), None, w, t_len, m, stream))
         posterior_fused.launches += 1
     posterior_fused.calls += 1
     return store[:, :, :m], alpha

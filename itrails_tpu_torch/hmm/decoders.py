@@ -8,9 +8,10 @@ reference decoders: a log-space forward scan with a per-step max shift
 ``viterbi_fast`` is the max-plus decoder the Viterbi CLI calls: kernel K3
 (``hmm/cuda_viterbi.py``) on the card, its plain version on the CPU.
 ``viterbi_segmented`` decodes one long block in bounded memory.
-``posterior_fast`` is the posterior the posterior CLI calls: kernel K4
-(``hmm/cuda_posterior.py``) on the card, its plain version on the CPU;
-``posterior_segmented`` streams one long block's posterior in bounded
+``posterior_fast`` is K4's dispatch: kernel K4 (``hmm/cuda_posterior.py``)
+on the card, its plain version on the CPU; ``posterior_segmented`` streams
+one long block's posterior in bounded memory, and ``posterior_stream``,
+what the posterior CLI calls, streams every block's posterior in bounded
 memory.
 
 Padding: windows are right-padded with ``PAD_TOKEN``; padded steps carry
@@ -19,14 +20,16 @@ state through unchanged so every quantity equals the unpadded computation.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from itrails_tpu_torch.data.tokens import PAD_TOKEN
-from itrails_tpu_torch.hmm import cuda_fwd, cuda_posterior, cuda_viterbi
+from itrails_tpu_torch.hmm import cuda_fwd, cuda_posterior, cuda_viterbi, windows
 
 __all__ = ["emission_table", "forward", "forward_loglik",
-           "forward_loglik_fast", "posterior_fast", "posterior_segmented",
-           "viterbi_fast", "viterbi_segmented"]
+           "forward_loglik_fast", "posterior_fast", "posterior_groups",
+           "posterior_segmented", "posterior_stream", "viterbi_fast",
+           "viterbi_segmented"]
 
 # Columns of one segment of viterbi_segmented and posterior_segmented: the
 # pointer table of one is SEGMENT_COLUMNS x M bytes (27 MB at M = 27, 133 MB
@@ -180,3 +183,64 @@ def posterior_segmented(a, bfull, pi, tokens):
         exits[k] = None
         yield rows
         del rows
+
+
+def posterior_groups(lengths, row_bytes, long_threshold):
+    """The batches of :func:`posterior_stream`, in block order: runs of
+    consecutive blocks of at most ``long_threshold`` columns, each cut so
+    that its padded (W, T_max) store of ``row_bytes`` a column
+    (``cuda_posterior.store_row_bytes``) stays one window group
+    (``cuda_posterior.window_group``), and each longer block alone.
+    Returns lists of block indices."""
+    groups, cur, t_max = [], [], 0
+    for i, n in enumerate(lengths):
+        if n > long_threshold:
+            groups += [cur, [i]] if cur else [[i]]
+            cur, t_max = [], 0
+            continue
+        if cur and len(cur) + 1 > cuda_posterior.window_group(max(t_max, n),
+                                                              row_bytes):
+            groups.append(cur)
+            cur, t_max = [], 0
+        cur.append(i)
+        t_max = max(t_max, n)
+    return groups + [cur] if cur else groups
+
+
+def posterior_stream(a, bfull, pi, v_lst, long_threshold):
+    """Posterior of every block of ``v_lst`` (1-D token arrays) on the
+    tables' device, as a generator of ``(block_idx, rows)`` in block and
+    column order, rows a (n, M) numpy array in the tables' dtype.
+
+    Each batch of :func:`posterior_groups` is decoded, copied to the host
+    and handed on before the next one runs: the short blocks as padded
+    window groups, each block above ``long_threshold`` as a one-window
+    batch, or, when one window's store would exceed
+    ``cuda_posterior.POSTERIOR_BUDGET_BYTES``, in the pieces of
+    :func:`posterior_segmented`.  So the device holds at most one group's
+    store or one segment's, whatever the number of states and the
+    alignment's size, and the host one group's or one segment's rows."""
+    dev = a.device
+    m = a.shape[0]
+    row_bytes = cuda_posterior.store_row_bytes(m, dev, a.dtype)
+    lengths = [len(v) for v in v_lst]
+    for group in posterior_groups(lengths, row_bytes, long_threshold):
+        i = group[0]
+        if lengths[i] <= long_threshold:
+            tokens, _, _ = windows.pack_windows([v_lst[j] for j in group])
+            post = posterior_fast(
+                a, bfull, pi, torch.as_tensor(tokens, device=dev)).cpu().numpy()
+            for w, j in enumerate(group):
+                yield j, post[: lengths[j], w, :]
+            del post
+            continue
+        v = torch.as_tensor(np.asarray(v_lst[i], np.int32), device=dev)
+        if lengths[i] * row_bytes > cuda_posterior.POSTERIOR_BUDGET_BYTES:
+            for seg in posterior_segmented(a, bfull, pi, v):
+                rows = seg.cpu().numpy()
+                del seg  # the segment's store goes before the next one runs
+                yield i, rows
+        else:
+            post = posterior_fast(a, bfull, pi, v[None, :])
+            yield i, post[:, 0, :].cpu().numpy()
+            del post

@@ -196,13 +196,13 @@ def test_entry_alpha_and_exit_beta_continue_a_window(dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_segmented_route_matches_one_pass(dtype, monkeypatch):
-    """run_posterior with the long-block and segment thresholds lowered:
-    the segmented route's pieces come in column order and join into the
+    """run_posterior with the long-block threshold and the store budget
+    lowered: the segmented route's pieces come in column order and join into the
     one-pass rows, bit for bit, and both give the plain version's on the
     block alone (exactly for a one-window batch; the short blocks share a
     batch, whose f32 products may round otherwise)."""
     from itrails_tpu_torch.cli import decode
-    from itrails_tpu_torch.hmm import decoders
+    from itrails_tpu_torch.hmm import cuda_posterior, decoders
 
     dt = getattr(torch, dtype)
     a, bfull, pi = (torch.tensor(x, dtype=dt) for x in _random_model(27, seed=9))
@@ -212,7 +212,9 @@ def test_segmented_route_matches_one_pass(dtype, monkeypatch):
     monkeypatch.setattr(decode, "LONG_BLOCK_THRESHOLD", 100)
     one_pass = list(decode.run_posterior(a, bfull, pi, v_lst))
     assert [i for i, _ in one_pass] == [0, 1, 2, 3, 4]
-    monkeypatch.setattr(decode, "SEGMENTED_POSTERIOR_THRESHOLD", 600)
+    # one window's store above the budget from 601 columns on
+    monkeypatch.setattr(cuda_posterior, "POSTERIOR_BUDGET_BYTES",
+                        600 * 27 * a.element_size())
     monkeypatch.setattr(decoders, "SEGMENT_COLUMNS", 128)
     pieces = list(decode.run_posterior(a, bfull, pi, v_lst))
     assert [i for i, _ in pieces] == [0] + [1] * 6 + [2] * 11 + [3, 4]
@@ -248,17 +250,24 @@ def test_segment_edges(seg_cols, monkeypatch):
 
 def test_window_groups_bound_the_store(monkeypatch):
     """Short blocks go in consecutive groups whose padded store stays under
-    the budget; a long block goes alone; the order is the block order."""
-    from itrails_tpu_torch.cli import decode
-    from itrails_tpu_torch.hmm import cuda_posterior
+    the budget; a long block goes alone; the order is the block order.  The
+    store is sized as the device allocates it: 32S float32 a column on the
+    card, M of the tables' dtype in the plain version."""
+    from itrails_tpu_torch.hmm import cuda_posterior, decoders
 
     monkeypatch.setattr(cuda_posterior, "POSTERIOR_BUDGET_BYTES", 3 * 100 * 128)
-    monkeypatch.setattr(decode, "LONG_BLOCK_THRESHOLD", 300)
+    card = cuda_posterior.store_row_bytes(27, "cuda", torch.float32)
+    assert card == 128
     lengths = [50, 100, 90, 10, 400, 20, 20, 20, 20, 301, 5]
-    groups = decode.posterior_groups(lengths, 27)
+    groups = decoders.posterior_groups(lengths, card, 300)
     assert groups == [[0, 1, 2], [3], [4], [5, 6, 7, 8], [9], [10]]
-    assert cuda_posterior.window_group(100, 27) == 3
-    assert cuda_posterior.window_group(100, 33) == 1  # 64 floats a column
+    assert cuda_posterior.window_group(100, card) == 3
+    # 64 floats a column
+    assert cuda_posterior.window_group(
+        100, cuda_posterior.store_row_bytes(33, "cuda", torch.float32)) == 1
+    assert cuda_posterior.store_row_bytes(27, "cpu", torch.float64) == 216
+    assert cuda_posterior.store_row_bytes(27, "cpu", torch.float32) == 108
+    assert cuda_posterior.window_group(100, 216) == 1
 
 
 def _jax_writer(path, results, coords):
