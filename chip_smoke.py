@@ -9,9 +9,10 @@ Phases, one result line each (every line starts with the card's name and
 power limit):
 
 1. build: compile kernels K1 (``itrails_tpu_torch/csrc/fwd.cu``), K2
-   (``csrc/grad.cu``), K3 (``csrc/viterbi.cu``) and K4
-   (``csrc/posterior.cu``) with nvcc for sm_90a, all at once, and print
-   their registers, shared memory and spills;
+   (``csrc/grad.cu``), K3 (``csrc/viterbi.cu``), K4
+   (``csrc/posterior.cu``) and K5 (``csrc/operators.cu``) with nvcc for
+   sm_90a, all at once, and print their registers, shared memory and
+   spills;
 2. K1 and then K2 against their plain PyTorch versions (f64, on the card)
    on the 3x3 model (M=27, 4096 x 8192 tokens) and the 7x7 model (M=133,
    1024 x 2048), built on the card, with ragged PAD tails and all-PAD
@@ -21,16 +22,30 @@ power limit):
    exactly, with its peak pointer-table bytes; then K4 against its f64
    plain version on the card at the same shapes, every non-PAD entry at
    atol 2e-5 and every non-PAD column's posterior summing to 1 within
-   1e-5, with its peak device bytes, and K4's error (no gate) on tokens
-   simulated from the 3x3 model with its recombination rate scaled down,
-   so that one state's runs grow from ~630 columns to ~63,000, split into
-   the f32 rounding of the tables and K4's f32 arithmetic;
+   1e-5, with its peak device bytes, and K4 in f64 against the same
+   reference at atol 1e-10; then K4's error on tokens simulated from the
+   3x3 model with its recombination rate scaled down, so that one state's
+   runs grow from ~630 columns to ~63,000: in f64 gated at atol 2e-5, in
+   f32 (no gate) split into the f32 rounding of the tables and K4's f32
+   arithmetic; then K5 against its plain version in f64 on the same f32
+   tables, on the card, at M=27 and M=133, on the 313 chunks of 1,024
+   columns of a 320 kb block simulated from each model, with PAD runs, an
+   all-PAD chunk and a PAD tail: operators at atol 1e-4 (1,024 f32
+   steps), log scales at rtol 1e-6 (and, no gate, the f32 rounding of the
+   tables' own part);
 3. the value-only path: ``itrails_tpu_torch.cli.optimize.main --no-grad``
    (Nelder-Mead) at 3x3 on a MAF simulated from the 3x3 model (1.32 M
-   columns: 100 blocks of 10 kb and one 320 kb block), with K1's launch
-   counter reset just before and read just after;
+   columns: 100 blocks of 10 kb and one 320 kb block), with K1's and K5's
+   launch counters reset just before and read just after: K1 runs the
+   bucket and K5 the long block, which launches no K1; evaluation 0 held
+   against the f64 plain version; then ``--no-grad`` with
+   ``settings.method: L-BFGS-B`` (scipy's finite differences) on the card,
+   its first 3 evaluations against the same CLI with ``--device cpu`` (run
+   in a process of its own while the card runs phases 3 to 5, and checked
+   after phase 5);
 4. the main path, the CLI's default: exact-gradient L-BFGS-B on the same
-   MAF, with K2's call counter reset just before and read just after,
+   MAF, with K2's call counter reset just before and read just after (the
+   long block a one-window K2 batch; no K1 or K5 launch),
    evaluation 0's value and gradient held against the plain version, and
    K2 on each of its batches, the 320 kb block whole, against the plain
    version (f64; the one-window block on the CPU, where its 320,000 small
@@ -48,17 +63,23 @@ power limit):
 7. the segmented route: the 320 kb block decoded on the card in 65,536-
    column segments (the threshold lowered) must equal its one-pass path;
 8. the posterior path: ``itrails_tpu_torch.cli.posterior.main`` at 3x3 on
-   phase 3's MAF with phase 4's ``.best_model.yaml``, with K4's counters
-   reset just before and read just after (launches: exactly two per
-   window group and long block); every column of every block it writes
-   held against the f64 plain version at atol 2e-5 (the one-window long
-   block on the CPU, in a process of its own while the card runs the
-   CLI), the CSV's header and row count checked and rows of every block
-   read back as the card's f32 values; seconds split into decode and
-   write;
+   phase 3's MAF with phase 4's ``.best_model.yaml``, at its default
+   ``--precision float64`` (K4 in f64), with K4's counters reset just
+   before and read just after (launches: exactly two per window group and
+   long block); every column of every block it writes held against the
+   f64 plain version at atol 1e-10 (the one-window long block on the CPU,
+   in a process of its own while the card runs the CLI), the CSV's header
+   and row count checked and rows of every block read back as the card's
+   values; seconds split into decode and write;
 9. the segmented posterior: the 320 kb block in 65,536-column segments
    (the store budget lowered below one window of it) must give phase 8's
-   one-pass rows bit for bit.
+   one-pass rows bit for bit;
+10. the long-block value: phase 3's 320 kb block and a 1e7-column block
+   simulated from the 3x3 model, and a 320 kb block simulated from the 7x7
+   model, each through K5 and the operator product, K1 as a one-window
+   batch and (the 320 kb blocks) K2 as a one-window batch, every value
+   within rtol 1e-6 of the f64 plain operator path on the card, with each
+   route's milliseconds and the K5 route's peak device memory.
 
 Any failure exits non-zero.  The last two lines are the kernels' JSON
 record and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -79,6 +100,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W power limit)
 PEAK_F32_FLOPS = 67e12  # outside the tensor cores
+PEAK_F64_FLOPS = 34e12  # outside the tensor cores
 PEAK_BYTES = 3.35e12
 SPECIES = ["hg38", "panTro5", "gorGor5", "ponAbe2"]
 # mu-scaled start point of examples/example_config.yaml (t_1 case)
@@ -103,6 +125,21 @@ SEGMENTS = (262_145, 65_536)
 # phase 2: K4 against its f64 plain version, per non-PAD entry, as
 # tests/test_pallas_fwd.py:78 holds the TPU kernel against the scan
 POST_ATOL = 2e-5
+# K4 in f64 (phases 2 and 8) against the f64 plain version: the same
+# recursion in another summation order
+POST64_ATOL = 1e-10
+# phases 2 and 10: the length of the CLI's long block; phase 10's
+# simulated block, windows x columns joined into one block
+LONG_BLOCK = 320_000
+LONG_SIM = (1000, 10_000)
+# phase 2: K5 against its plain version in f64 on the same f32 tables:
+# operators (max entry 1) and log scales.  A chunk is a product of 1,024
+# f32 steps whose relative roundings add up where states persist:
+# 1,024 x 2^-24 = 6.1e-5 of the max entry; the plain version itself in f32
+# is 3.2e-5 to 3.8e-5 off its f64 run on such chunks at M = 27 and 133
+OPS_ATOL, LOGZ_RTOL = 1e-4, 1e-6
+# phase 10: each route's long-block value against the f64 plain one
+LONG_RTOL = 1e-6
 # phase 2: K4's f32 error as one state's runs grow: the recombination rates
 # (START's r scaled) and the windows x columns simulated from each model
 RUN_RATES = (1.0, 0.1, 0.01)
@@ -123,6 +160,11 @@ POSTERIOR_REF = (
     "tok = torch.as_tensor(np.load(tokens))[None, :]\n"
     "post, _ = cuda_posterior.posterior_fused_plain(a, bfull, pi, tok)\n"
     "np.save(out, post[:, 0, :].numpy())\n")
+
+
+# processes started by a phase and waited for by a later one; main() stops
+# any that is still running when it returns
+RUNNING = []
 
 
 class SmokeFailure(Exception):
@@ -231,17 +273,33 @@ def k3_bound_ms(m, tokens):
                                          else "bytes")
 
 
-def k4_bound_ms(m, tokens):
+def k4_bound_ms(m, tokens, size=4):
     """Least time of K4's function on these inputs: per non-PAD column the
     two M x M products (a^T alpha and a^T (e * beta), 4*M^2) and 9*M for the
     emission products, the three normalizations and gamma's product; bytes:
     each non-PAD column's token read (4) and its posterior row written
-    (4*M), and the tables read once.  The alpha store (written by the
-    forward, read back and overwritten by the reverse sweep) is a cost of
-    K4's design and is not counted."""
+    (``size``*M), and the tables read once.  The alpha store (written by
+    the forward, read back and overwritten by the reverse sweep) is a cost
+    of K4's design and is not counted.  ``size`` 8 is K4 in f64, at the f64
+    peak."""
     steps = int((tokens >= 0).sum())
     ops = steps * (4 * m * m + 9 * m)
-    nbytes = steps * (4 + 4 * m) + 4 * (m * m + 625 * m + m)
+    nbytes = steps * (4 + size * m) + size * (m * m + 625 * m + m)
+    by_ops = ops / (PEAK_F32_FLOPS if size == 4 else PEAK_F64_FLOPS)
+    by_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes
+                                         else "bytes")
+
+
+def k5_bound_ms(m, tokens):
+    """Least time of K5's function on these inputs: per non-PAD column the
+    product G @ a (2*M^3) and the emission scale and normalization (2*M^2);
+    bytes: 4 a column of tokens in, and each chunk's operator and log
+    scale out (4*M^2 + 8)."""
+    c, length = tokens.shape
+    steps = int((tokens >= 0).sum())
+    ops = steps * (2 * m ** 3 + 2 * m * m)
+    nbytes = 4 * c * length + c * (4 * m * m + 8)
     by_ops = ops / PEAK_F32_FLOPS
     by_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes
@@ -294,11 +352,12 @@ def phase_build(card):
     from concurrent.futures import ThreadPoolExecutor
 
     from itrails_tpu_torch.hmm import (_build, cuda_fwd, cuda_grad,
-                                       cuda_posterior, cuda_viterbi)
+                                       cuda_longseq, cuda_posterior,
+                                       cuda_viterbi)
 
     t0 = time.perf_counter()
     kernels = (("K1", cuda_fwd), ("K2", cuda_grad), ("K3", cuda_viterbi),
-               ("K4", cuda_posterior))
+               ("K4", cuda_posterior), ("K5", cuda_longseq))
     with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc a source, at once
         jobs = [(name, pool.submit(mod.build)) for name, mod in kernels]
         built = [(name, job.result()) for name, job in jobs]
@@ -500,12 +559,14 @@ def phase_k3(card, dev, m_label, n_ab, n_abc, w, t, seed, reps, tie=False):
 
 
 def phase_k4(card, dev, m_label, n_ab, n_abc, w, t, seed, reps):
-    """K4 against its f64 plain version on the card; returns its record."""
+    """K4 against its f64 plain version on the card, in f32 and in f64;
+    returns the f64 record (the posterior CLI's default)."""
     import torch
 
     from itrails_tpu_torch.hmm import cuda_posterior
 
     a, bfull, pi, _ = build_tables(n_ab, n_abc, dev)
+    a, bfull, pi = (x.contiguous() for x in (a, bfull, pi))
     m = a.shape[0]
     tok = padded_tokens(dev, w, t, seed)
     a32, b32, p32 = (x.float().contiguous() for x in (a, bfull, pi))
@@ -515,14 +576,17 @@ def phase_k4(card, dev, m_label, n_ab, n_abc, w, t, seed, reps):
     post, alpha = cuda_posterior.posterior_fused(a32, b32, p32, tok)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(dev) - base
+    post64, alpha64 = cuda_posterior.posterior_fused(a, bfull, pi, tok)
     t0 = time.perf_counter()
     ref, al_ref = cuda_posterior.posterior_fused_plain(a, bfull, pi, tok)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
     check(tuple(post.shape) == (t, w, m) and post.dtype == torch.float32,
           f"K4 {m_label}: misshapen posterior")
+    check(tuple(post64.shape) == (t, w, m) and post64.dtype == torch.float64,
+          f"K4 {m_label} f64: misshapen posterior")
     real = (tok >= 0).T  # (T, W): the columns whose posterior is defined
-    err = sum_err = 0.0
+    err = sum_err = err64 = 0.0
     finite = True
     for lo in range(0, t, 512):  # in slices: the f64 differences are large
         r = real[lo:lo + 512]
@@ -532,9 +596,16 @@ def phase_k4(card, dev, m_label, n_ab, n_abc, w, t, seed, reps):
                                          0.0).max()))
         sum_err = max(sum_err, float(torch.where(r, (p.sum(dim=2) - 1).abs(),
                                                  0.0).max()))
+        err64 = max(err64, float(torch.where(
+            r[:, :, None], (post64[lo:lo + 512] - ref[lo:lo + 512]).abs(),
+            0.0).max()))
     alpha_err = float((alpha.double() - al_ref).abs().max())
-    del ref, p
+    alpha64_err = float((alpha64 - al_ref).abs().max())
+    del ref, p, post64
     check(finite, f"K4 {m_label}: non-finite posterior")
+    check(err64 <= POST64_ATOL and alpha64_err <= POST64_ATOL,
+          f"K4 {m_label} f64: posterior off the plain version by {err64:.3g}, "
+          f"final alpha by {alpha64_err:.3g} (atol {POST64_ATOL:g})")
     check(err <= POST_ATOL, f"K4 {m_label}: posterior off the plain version by "
                             f"{err:.3g} (atol {POST_ATOL:g})")
     check(sum_err <= 1e-5, f"K4 {m_label}: a posterior row sums to 1 +- {sum_err:.3g}")
@@ -548,6 +619,9 @@ def phase_k4(card, dev, m_label, n_ab, n_abc, w, t, seed, reps):
     split = kernel_split(lambda: cuda_posterior.posterior_fused(a32, b32, p32, tok),
                          ("forward_kernel", "k4_reverse_kernel"))
     bound_ms, bound_by = k4_bound_ms(m, tok)
+    ms64 = cuda_ms(lambda: cuda_posterior.posterior_fused(a, bfull, pi, tok),
+                   reps)
+    bound64_ms, bound64_by = k4_bound_ms(m, tok, size=8)
     print(f"{card} | phase 2 K4 {m_label} M={m} W={w} T={t}: posterior max abs "
           f"err {err:.3g} over the non-PAD entries (atol {POST_ATOL:g}, vs the "
           f"plain f64 version), rows sum to 1 within {sum_err:.3g} (1e-5), "
@@ -557,18 +631,25 @@ def phase_k4(card, dev, m_label, n_ab, n_abc, w, t, seed, reps):
           f"{t * w * 4 * 32 * -(-m // 32)} bytes), plain f64 {plain_ms:.1f} ms (one call, host clock, no "
           f"yardstick), bound {bound_ms:.4f} ms ({bound_by}), "
           f"{bound_ms / ms:.1%} of bound")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"{card} | phase 2 K4 {m_label} M={m} W={w} T={t} f64: posterior max "
+          f"abs err {err64:.3g} over the non-PAD entries (atol "
+          f"{POST64_ATOL:g}, vs the plain f64 version), final alpha "
+          f"{alpha64_err:.3g}; K4 f64 {ms64:.4f} ms (mean of {reps}), "
+          f"{ms64 / ms:.2f}x f32, f64 bound {bound64_ms:.4f} ms "
+          f"({bound64_by}, 34 TFLOP/s), {bound64_ms / ms64:.1%} of bound")
+    return {"max_abs_err": err64, "ms": ms64, "plain_ms": plain_ms,
+            "bound_ms": bound64_ms, "bound_by": bound64_by}
 
 
 def phase_k4_run_lengths(card, dev):
-    """K4's f32 error against its f64 plain version as one state's runs
-    grow: tokens simulated from the 3x3 model at START with r scaled by
-    RUN_RATES (slower switching, longer runs).  A reading for the record
-    of how far a model that switches more rarely than phase 8's takes the
-    error past POST_ATOL, split into the part that the f32 rounding of the
-    tables alone makes (the f64 plain version on the f32-rounded tables)
-    and the part that K4's f32 arithmetic adds on those tables."""
+    """K4's error against its f64 plain version as one state's runs grow:
+    tokens simulated from the 3x3 model at START with r scaled by
+    RUN_RATES (slower switching, longer runs).  K4 in f64 is gated at
+    POST_ATOL at every rate.  K4 in f32 is a reading for the record of how
+    far a model that switches more rarely than phase 8's takes its error
+    past POST_ATOL, split into the part that the f32 rounding of the tables
+    alone makes (the f64 plain version on the f32-rounded tables) and the
+    part that K4's f32 arithmetic adds on those tables."""
     import torch
 
     from itrails_tpu_torch.data.simulate import simulate_token_batch
@@ -585,24 +666,101 @@ def phase_k4_run_lengths(card, dev):
         check(bool(torch.isfinite(post).all()), f"K4 at r={r:g}: non-finite posterior")
         ref, _ = cuda_posterior.posterior_fused_plain(a, bfull, pi, tok)
         err = float((post.double() - ref).abs().max())
+        post64, _ = cuda_posterior.posterior_fused(
+            *(x.contiguous() for x in (a, bfull, pi)), tok)
+        err64 = float((post64 - ref).abs().max())
+        del post64
+        check(err64 <= POST_ATOL, f"K4 f64 at r={r:g}: posterior off the plain "
+                                  f"version by {err64:.3g} (atol {POST_ATOL:g})")
         rounded, _ = cuda_posterior.posterior_fused_plain(
             *(x.double() for x in tables), tok)
         table_err = float((rounded - ref).abs().max())
         del ref
         arith_err = float((post.double() - rounded).abs().max())
         del post, rounded
-        parts.append(f"r={r:g}: mean run {run:.0f} columns, max abs err {err:.3g}"
-                     f" (f32 tables alone {table_err:.3g}, K4's f32 arithmetic "
-                     f"on them {arith_err:.3g})")
-    print(f"{card} | phase 2 K4 3x3 f32 error as switching slows "
+        parts.append(f"r={r:g}: mean run {run:.0f} columns, f64 K4 max abs err "
+                     f"{err64:.3g}; f32 K4 max abs err {err:.3g} (f32 tables "
+                     f"alone {table_err:.3g}, K4's f32 arithmetic on them "
+                     f"{arith_err:.3g})")
+    print(f"{card} | phase 2 K4 3x3 error as switching slows "
           f"({RUN_SHAPE[0]} x {RUN_SHAPE[1]} columns simulated from each "
-          f"model, against the f64 plain version, no gate; atol {POST_ATOL:g}"
-          f" elsewhere): " + "; ".join(parts))
+          f"model, against the f64 plain version; f64 K4 gated at atol "
+          f"{POST_ATOL:g}, f32 K4 no gate): " + "; ".join(parts))
+
+
+def phase_k5(card, dev, m_label, n_ab, n_abc, seed, reps):
+    """K5 against its plain version in f64 on the same (f32) tables, on the
+    card, on the chunks of a 320 kb block simulated from the model; returns
+    its record.  The plain version on the f64 tables is read too, without a
+    gate: over 1,024 columns of a model whose states persist, the f32
+    rounding of the tables alone moves the operators by ~5e-5."""
+    import torch
+
+    from itrails_tpu_torch.data.simulate import simulate_token_batch
+    from itrails_tpu_torch.hmm import cuda_longseq, longseq
+
+    a, bfull, pi, b = build_tables(n_ab, n_abc, dev)
+    m = a.shape[0]
+    chunk = longseq.CHUNK
+    n_chunks = -(-(LONG_BLOCK - 1) // chunk)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tok = simulate_token_batch(a, b, pi, n_chunks, chunk, gen)
+    tok[1, 100:400] = -1  # a PAD run
+    tok[5] = -1  # an all-PAD chunk
+    tok[-1, (LONG_BLOCK - 1) % chunk:] = -1  # the block's PAD tail
+    a32, b32 = (x.float().contiguous() for x in (a, bfull))
+
+    ops, logz = cuda_longseq.chunk_operators_fused(a32, b32, tok)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ops_ref, logz_ref = cuda_longseq.chunk_operators(
+        a32.double(), b32.double(), tok.reshape(-1), chunk)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    ops64, logz64 = cuda_longseq.chunk_operators(a, bfull, tok.reshape(-1), chunk)
+    tables_ops = float((ops_ref - ops64).abs().max())
+    tables_logz = float(((logz_ref - logz64).abs()
+                         / logz64.abs().clamp(min=1.0)).max())
+    del ops64, logz64
+    check(tuple(ops.shape) == (n_chunks, m, m) and ops.dtype == torch.float32
+          and logz.dtype == torch.float64, f"K5 {m_label}: misshapen output")
+    check(bool(torch.isfinite(ops).all() and torch.isfinite(logz).all()),
+          f"K5 {m_label}: non-finite output")
+    ops_err = float((ops.double() - ops_ref).abs().max())
+    logz_err = float(((logz - logz_ref).abs()
+                      / logz_ref.abs().clamp(min=1.0)).max())
+    check(ops_err <= OPS_ATOL, f"K5 {m_label}: operators off the plain version "
+                               f"by {ops_err:.3g} (atol {OPS_ATOL:g})")
+    check(logz_err <= LOGZ_RTOL, f"K5 {m_label}: log scales off by "
+                                 f"{logz_err:.3g} (rtol {LOGZ_RTOL:g})")
+    check(bool(torch.equal(ops[5], torch.eye(m, device=dev))) and float(logz[5]) == 0.0,
+          f"K5 {m_label}: the all-PAD chunk is not the identity")
+
+    before = cuda_longseq.chunk_operators_fused.launches
+    ms = cuda_ms(lambda: cuda_longseq.chunk_operators_fused(a32, b32, tok), reps)
+    launches = cuda_longseq.chunk_operators_fused.launches - before
+    check(launches == reps + 1, f"K5 {m_label}: timed calls did not all launch "
+                                "the kernel")
+    bound_ms, bound_by = k5_bound_ms(m, tok)
+    print(f"{card} | phase 2 K5 {m_label} M={m} C={n_chunks} L={chunk}: "
+          f"operators max abs err {ops_err:.3g} (atol {OPS_ATOL:g}), log "
+          f"scales max rel err {logz_err:.3g} (rtol {LOGZ_RTOL:g}; |logz| up "
+          f"to {float(logz_ref.abs().max()):.1f}), vs the plain version in "
+          f"f64 on the same f32 tables (the f32 rounding of the tables alone, "
+          f"against the f64 tables, no gate: {tables_ops:.3g} and "
+          f"{tables_logz:.3g}); "
+          f"the all-PAD chunk the identity with scale 0; K5 {ms:.4f} ms (mean "
+          f"of {reps}, {launches} launches), plain f64 {plain_ms:.1f} ms (one "
+          f"call, host clock, no yardstick), bound {bound_ms:.4f} ms "
+          f"({bound_by}), {bound_ms / ms:.1%} of bound")
+    return {"max_abs_err": ops_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def phase_cli(card, dev, workdir):
     """The value-only path: the optimize CLI, Nelder-Mead, at 3x3.  Returns
-    its launches of K1 and what phase 4 reuses."""
+    its launches of K1 and K5 and what later phases reuse; starts the CPU
+    run of :func:`phase_cli_fd` in a process of its own."""
     import torch
     import yaml
 
@@ -610,7 +768,7 @@ def phase_cli(card, dev, workdir):
     from itrails_tpu_torch.cli.optimize import main
     from itrails_tpu_torch.data.maf import maf_tokens
     from itrails_tpu_torch.data.simulate import simulate_token_batch, write_maf
-    from itrails_tpu_torch.hmm import cuda_fwd, windows
+    from itrails_tpu_torch.hmm import cuda_fwd, cuda_longseq, longseq, windows
     from itrails_tpu_torch.optim.cases import resolve_times
 
     t0 = time.perf_counter()
@@ -639,18 +797,21 @@ def phase_cli(card, dev, workdir):
     v_lst = maf_tokens(maf, SPECIES)
     lengths = [len(v) for v in v_lst]
     buckets, long_idx = windows.plan_buckets(lengths, 1)
-    per_eval = len(buckets) + len(long_idx)
-    check(sum(lengths) >= 1_000_000 and len(long_idx) == 1,
+    check(sum(lengths) >= 1_000_000 and len(long_idx) == 1
+          and lengths[long_idx[0]] == LONG_BLOCK,
           "phase 3 MAF is not the planned layout")
+    fd = start_cli_fd_cpu(workdir, config)
     prep_s = time.perf_counter() - t0
 
     out = os.path.join(workdir, "run", "sim")
     cuda_fwd.forward_fused.launches = 0
+    cuda_longseq.chunk_operators_fused.launches = 0
     t0 = time.perf_counter()
     main([cfg_path, "--output", out, "--no-grad", "--maxiter", "3"])
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     launches = cuda_fwd.forward_fused.launches
+    k5_launches = cuda_longseq.chunk_operators_fused.launches
 
     rows = np.loadtxt(out + ".optimization_history.csv", delimiter=",",
                       skiprows=1, ndmin=2)
@@ -664,38 +825,134 @@ def phase_cli(card, dev, workdir):
     best_ll = best["results"]["log_likelihood"]
     check(np.isfinite(best_ll) and best_ll == rows[:, -2].max(),
           "best-model loglik is not the best history row")
-    check(launches == n_eval * per_eval,
+    check(launches == n_eval * len(buckets),
           f"K1 launched {launches} times for {n_eval} evaluations x "
-          f"{per_eval} batches")
+          f"{len(buckets)} bucket(s): the long block must launch no K1")
+    check(k5_launches == n_eval * len(long_idx),
+          f"K5 launched {k5_launches} times for {n_eval} evaluations x "
+          f"{len(long_idx)} long block(s)")
 
-    # the first evaluation against the plain version in f64 on the card
+    # the first evaluation against the plain version in f64 on the card:
+    # K1's on the buckets, the operator path's on the long block
     setup = prepare_optimize_setup(config)
     d = dict(setup["fixed_dict"], **dict(zip(setup["optim_variables"],
                                              setup["optim_list"])))
     d = resolve_times(setup["case"], d)
     a0, bfull0, pi0, _ = build_tables(3, 3, dev, d)
+    a0, bfull0, pi0 = (x.contiguous() for x in (a0, bfull0, pi0))
     a32, b32, p32 = (x.float().contiguous() for x in (a0, bfull0, pi0))
     ref = 0.0
-    per_batch = []  # K1 ms at each of the main path's batch shapes
-    for i_blocks in buckets + [[i] for i in long_idx]:
+    per_batch = []  # K1 ms at each bucket's shape, the K5 route's on the block
+    for i_blocks in buckets:
         tok, _, _ = windows.pack_windows([v_lst[i] for i in i_blocks],
                                          pad_length_to=128)
         tok = torch.as_tensor(tok, device=dev)
         _, ll_ref = cuda_fwd.forward_fused_plain(a0, bfull0, pi0, tok)
         ref += float(ll_ref.sum())
         ms = cuda_ms(lambda: cuda_fwd.forward_fused(a32, b32, p32, tok), 1)
-        per_batch.append(f"{tuple(tok.shape)} {ms:.2f} ms")
+        per_batch.append(f"K1 {tuple(tok.shape)} {ms:.2f} ms")
+    for i in long_idx:
+        tok = torch.as_tensor(v_lst[i], device=dev)
+        ref += float(longseq.forward_loglik_long_plain(a0, bfull0, pi0, tok))
+        ms = cuda_ms(lambda: longseq.forward_loglik_long(a32, b32, p32, tok), 3)
+        per_batch.append(f"K5 + operator product, the {len(tok)}-column "
+                         f"block, {ms:.2f} ms")
     rel = abs(rows[0, -2] - ref) / abs(ref)
     check(rel <= 1e-6, f"first evaluation off the f64 reference by {rel:.3g}")
     print(f"{card} | phase 3 optimize CLI 3x3 Nelder-Mead: {sum(lengths)} "
           f"columns in {len(lengths)} blocks ({len(buckets)} bucket(s) + "
           f"{len(long_idx)} long block), {n_eval} evaluations in {cli_s:.2f} s "
           f"({cli_s / n_eval:.3f} s/eval), K1 launches {launches} = "
-          f"{n_eval} x {per_eval}, best loglik {best_ll:.6f}, eval 0 vs plain "
-          f"f64 rel err {rel:.3g} (rtol 1e-6); K1 per evaluation: "
+          f"{n_eval} x {len(buckets)}, K5 launches {k5_launches} = {n_eval} x "
+          f"{len(long_idx)}, best loglik {best_ll:.6f}, eval 0 vs plain "
+          f"f64 rel err {rel:.3g} (rtol 1e-6); per evaluation: "
           f"{', '.join(per_batch)}; simulation + MAF {prep_s:.1f} s")
-    return launches, {"config": config, "v_lst": v_lst, "per_eval": per_eval,
-                      "ref": ref, "maf": maf}
+    return launches, k5_launches, {
+        "config": config, "v_lst": v_lst,
+        "per_eval": len(buckets) + len(long_idx), "ref": ref, "maf": maf,
+        "fd": fd}
+
+
+def start_cli_fd_cpu(workdir, config):
+    """Starts the optimize CLI with ``--no-grad`` and ``settings.method:
+    L-BFGS-B`` (scipy's finite differences) on phase 3's MAF with
+    ``--device cpu``, in a process of its own; returns what
+    :func:`phase_cli_fd` needs."""
+    import yaml
+
+    config = dict(config, settings=dict(config["settings"], method="L-BFGS-B"))
+    cfg_path = os.path.join(workdir, "config_fd.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(config, f)
+    out = os.path.join(workdir, "run_fd_cpu", "sim")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    log = open(out + ".log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "itrails_tpu_torch.cli.optimize", cfg_path,
+         "--output", out, "--no-grad", "--maxiter", "1", "--device", "cpu"],
+        stdout=log, stderr=subprocess.STDOUT, cwd=ROOT, env=env)
+    RUNNING.append(proc)
+    return {"config": cfg_path, "out": out, "proc": proc, "log": log}
+
+
+def phase_cli_fd(card, dev, workdir, cli):
+    """``--no-grad`` with ``settings.method: L-BFGS-B`` on the card: its
+    first 3 evaluations (the start point, then the start point stepped in
+    one coordinate at a time) against the same CLI on the CPU in f64."""
+    import torch
+
+    from itrails_tpu_torch.cli.optimize import main
+    from itrails_tpu_torch.hmm import cuda_fwd, cuda_longseq
+
+    fd = cli["fd"]
+    out = os.path.join(workdir, "run_fd_card", "sim")
+    cuda_fwd.forward_fused.launches = 0
+    cuda_longseq.chunk_operators_fused.launches = 0
+    t0 = time.perf_counter()
+    main([fd["config"], "--output", out, "--no-grad", "--maxiter", "1"])
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    k1, k5 = (cuda_fwd.forward_fused.launches,
+              cuda_longseq.chunk_operators_fused.launches)
+    t0 = time.perf_counter()
+    rc = fd["proc"].wait()
+    wait_s = time.perf_counter() - t0
+    fd["log"].close()
+    with open(fd["out"] + ".log") as f:
+        check(rc == 0, f"the CPU finite-difference CLI exited {rc}:\n"
+                       f"{f.read()[-2000:]}")
+    rows = np.loadtxt(out + ".optimization_history.csv", delimiter=",",
+                      skiprows=1, ndmin=2)
+    ref = np.loadtxt(fd["out"] + ".optimization_history.csv", delimiter=",",
+                     skiprows=1, ndmin=2)
+    n_eval = rows.shape[0]
+    check(n_eval >= 3 and ref.shape[0] >= 3, "finite-difference history too short")
+    check(k1 == n_eval * (cli["per_eval"] - 1) and k5 == n_eval,
+          f"finite-difference run: K1 launches {k1}, K5 launches {k5} for "
+          f"{n_eval} evaluations")
+    check(np.array_equal(rows[:3, 1:-2], ref[:3, 1:-2]),
+          "the card's first 3 evaluation points differ from the CPU's")
+    rel = np.abs(rows[:3, -2] - ref[:3, -2]) / np.abs(ref[:3, -2])
+    check(bool((rel <= 1e-6).all()),
+          f"the card's first 3 logliks off the CPU f64 ones by {rel}")
+    with open(out + ".optimization_history.csv") as f:
+        names = f.readline().strip().split(",")[1:-2]
+    slopes = []  # the finite differences of rows 1 and 2 against row 0
+    for k in (1, 2):
+        j = int(np.flatnonzero(rows[k, 1:-2] != rows[0, 1:-2])[0])
+        h = rows[k, 1 + j] - rows[0, 1 + j]
+        slopes.append(f"d/d{names[j]} card {(rows[k, -2] - rows[0, -2]) / h:.6g}"
+                      f" vs CPU {(ref[k, -2] - ref[0, -2]) / h:.6g} (step "
+                      f"{h:.3g})")
+    print(f"{card} | phase 3 optimize CLI 3x3 --no-grad L-BFGS-B (finite "
+          f"differences), --maxiter 1: {n_eval} evaluations on the card in "
+          f"{card_s:.2f} s (K1 launches {k1}, K5 launches {k5}); the CPU run "
+          f"(f64, started with phase 3) waited {wait_s:.1f} s after, "
+          f"{ref.shape[0]} evaluations; first 3 evaluation points equal, "
+          f"logliks rel err {', '.join(f'{x:.3g}' for x in rel)} (rtol 1e-6); "
+          f"finite-difference slopes: {'; '.join(slopes)}")
 
 
 def phase_cli_grad(card, dev, workdir, cli):
@@ -706,7 +963,7 @@ def phase_cli_grad(card, dev, workdir, cli):
 
     from itrails_tpu_torch.cli.common import prepare_optimize_setup
     from itrails_tpu_torch.cli.optimize import main
-    from itrails_tpu_torch.hmm import cuda_fwd, cuda_grad
+    from itrails_tpu_torch.hmm import cuda_fwd, cuda_grad, cuda_longseq
     from itrails_tpu_torch.optim.cases import resolve_times
     from itrails_tpu_torch.optim.optimizer import LoglikEngine
 
@@ -719,12 +976,14 @@ def phase_cli_grad(card, dev, workdir, cli):
     out = os.path.join(workdir, "run_grad", "sim")
     cuda_grad.loglik_and_grads_fused.calls = 0
     cuda_fwd.forward_fused.launches = 0
+    cuda_longseq.chunk_operators_fused.launches = 0
     t0 = time.perf_counter()
     main([cfg_path, "--output", out, "--maxiter", "3"])
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     calls = cuda_grad.loglik_and_grads_fused.calls
     k1_launches = cuda_fwd.forward_fused.launches
+    k5_launches = cuda_longseq.chunk_operators_fused.launches
 
     rows = np.loadtxt(out + ".optimization_history.csv", delimiter=",",
                       skiprows=1, ndmin=2)
@@ -741,7 +1000,9 @@ def phase_cli_grad(card, dev, workdir, cli):
     check(calls == n_eval * cli["per_eval"],
           f"K2 called {calls} times for {n_eval} evaluations x "
           f"{cli['per_eval']} batches")
-    check(k1_launches == 0, f"the gradient path launched K1 {k1_launches} times")
+    check(k1_launches == 0 and k5_launches == 0,
+          f"the gradient path launched K1 {k1_launches} times and K5 "
+          f"{k5_launches} times")
     rel = abs(rows[0, -2] - cli["ref"]) / abs(cli["ref"])
     check(rel <= 1e-6, f"grad evaluation 0 off the f64 reference by {rel:.3g}")
 
@@ -791,7 +1052,8 @@ def phase_cli_grad(card, dev, workdir, cli):
     print(f"{card} | phase 4 optimize CLI 3x3 default (L-BFGS-B, exact "
           f"gradients): {n_eval} evaluations in {cli_s:.2f} s "
           f"({cli_s / n_eval:.3f} s/eval), K2 calls {calls} = {n_eval} x "
-          f"{cli['per_eval']}, K1 launches {k1_launches}, best loglik "
+          f"{cli['per_eval']}, K1 launches {k1_launches}, K5 launches "
+          f"{k5_launches}, best loglik "
           f"{best_ll:.6f}; eval 0 vs plain f64 loglik rel err {rel:.3g} "
           f"(rtol 1e-6), gradient rel err per parameter "
           f"{', '.join(f'{e:.2g}' for e in g_rel)} (rtol 2e-3, against the "
@@ -1068,7 +1330,7 @@ def phase_posterior_cli(card, dev, workdir, cli, best_yaml):
     v_lst = cli["v_lst"]
     lengths = [len(v) for v in v_lst]
     n_states = 27
-    row_bytes = cuda_posterior.store_row_bytes(n_states, dev, torch.float32)
+    row_bytes = cuda_posterior.store_row_bytes(n_states, dev, torch.float64)
     groups = decoders.posterior_groups(lengths, row_bytes,
                                        decode.LONG_BLOCK_THRESHOLD)
     long_blocks = [i for i, n in enumerate(lengths)
@@ -1147,12 +1409,11 @@ def phase_posterior_cli(card, dev, workdir, cli, best_yaml):
           and [i for i, _ in pieces] == sorted(i for i, _ in pieces),
           "the CLI did not hand every block on, in block order")
     rows = {i: np.concatenate(p) for i, p in blocks.items()}
-    check(all(rows[i].shape == (n, n_states) and rows[i].dtype == np.float32
-              for i, n in enumerate(lengths)), "misshapen posterior rows")
+    check(all(rows[i].shape == (n, n_states) and rows[i].dtype == np.float64
+              for i, n in enumerate(lengths)),
+          "misshapen posterior rows: the CLI's default is f64")
     setup = prepare_decode_setup(load_config(best_yaml))
-    _, a, bfull, pi = decode.build(setup, "float64", "cpu")
-    a, bfull, pi = (x.to(dev) for x in (a, bfull, pi))
-    _, a32, b32, p32 = decode.build(setup, "float32", dev)
+    _, a, bfull, pi = decode.build(setup, "float64", dev, posterior=True)
     errs, per_batch = [], []  # per batch: max abs err, and K4 alone
     for group in groups:
         if group == long_blocks:
@@ -1167,15 +1428,15 @@ def phase_posterior_cli(card, dev, workdir, cli, best_yaml):
                             for w, i in enumerate(group)))
             del ref
         tok = torch.as_tensor(tok, device=dev)
-        ms = cuda_ms(lambda: cuda_posterior.posterior_fused(a32, b32, p32, tok), 1)
+        ms = cuda_ms(lambda: cuda_posterior.posterior_fused(a, bfull, pi, tok), 1)
         per_batch.append(f"{tuple(tok.shape)} {ms:.2f} ms, max abs err "
                          f"{errs[-1]:.3g}")
     err = max(errs)
-    check(err <= POST_ATOL, f"the CLI's posterior is off the f64 plain version "
-                            f"by {err:.3g} (atol {POST_ATOL:g})")
+    check(err <= POST64_ATOL, f"the CLI's posterior is off the f64 plain "
+                              f"version by {err:.3g} (atol {POST64_ATOL:g})")
 
     # the CSV: its header, one line a column, and rows of every block read
-    # back as the card's f32 values widened to f64
+    # back as the card's f64 values
     path = out + ".posterior.csv"
     starts = np.concatenate([[0], np.cumsum(lengths)])
     samples = {}
@@ -1190,8 +1451,7 @@ def phase_posterior_cli(card, dev, workdir, cli, best_yaml):
                 i, k = samples[n_lines]
                 fields = line.rstrip("\n").split(",")
                 check(fields[:2] == [str(i), str(k)]
-                      and [float(x) for x in fields[2:]]
-                      == rows[i][k].astype(np.float64).tolist(),
+                      and [float(x) for x in fields[2:]] == rows[i][k].tolist(),
                       f"CSV line {n_lines} is not block {i} column {k} of the "
                       "card's posterior")
     want = ",".join(["alignment_block_idx", "position_idx"]
@@ -1205,12 +1465,14 @@ def phase_posterior_cli(card, dev, workdir, cli, best_yaml):
           f"(host clock) = decode {seconds['decode']:.2f} s (K4 and the copy to "
           f"the host) + write {seconds['writer'] - seconds['decode']:.2f} s + "
           f"MAF, build and hidden states "
-          f"{cli_s - seconds['writer']:.2f} s; K4 calls {calls}, launches "
+          f"{cli_s - seconds['writer']:.2f} s; K4 (f64, the CLI's default) "
+          f"calls {calls}, launches "
           f"{launches} ({len(groups)} batch(es)); every column within "
-          f"{err:.3g} of the f64 plain version (atol {POST_ATOL:g}; the long "
+          f"{err:.3g} of the f64 plain version (atol {POST64_ATOL:g}; the long "
           f"block's reference on the CPU, waited {ref_wait_s:.1f} s after the "
           f"CLI); K4 alone per batch: {'; '.join(per_batch)}; CSV "
-          f"{os.path.getsize(path)} bytes, header and {n_lines} rows checked, {len(samples)} sampled rows equal to the card's f32 values")
+          f"{os.path.getsize(path)} bytes, header and {n_lines} rows checked, "
+          f"{len(samples)} sampled rows equal to the card's f64 values")
     return launches, rows[long_blocks[0]]
 
 
@@ -1225,7 +1487,7 @@ def phase_posterior_segmented(card, dev, cli, best_yaml, one_pass):
     from itrails_tpu_torch.hmm import cuda_posterior, decoders
 
     setup = prepare_decode_setup(load_config(best_yaml))
-    _, a, bfull, pi = decode.build(setup, "float32", dev)
+    _, a, bfull, pi = decode.build(setup, "float64", dev, posterior=True)
     (block,) = [v for v in cli["v_lst"] if len(v) > decode.LONG_BLOCK_THRESHOLD]
     threshold, seg_cols = SEGMENTS
     check(len(block) > threshold, "the long block is below the segment threshold")
@@ -1261,6 +1523,85 @@ def phase_posterior_segmented(card, dev, cli, best_yaml, one_pass):
           f"segmented decode {peak} bytes")
 
 
+def timed(fn):
+    """``fn()`` and its device milliseconds, one call timed with events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_long_value(card, dev, cli):
+    """The long-block value through its three routes (K5 and the operator
+    product, K1 and K2 as one-window batches) against the f64 plain
+    operator path, on phase 3's 320 kb block and a 1e7-column block at 3x3
+    and a 320 kb block at 7x7."""
+    import torch
+
+    from itrails_tpu_torch.data.simulate import simulate_token_batch
+    from itrails_tpu_torch.hmm import cuda_fwd, cuda_grad, longseq
+
+    cases = []
+    for label, n_ab, n_abc, shape, seed in (
+            ("3x3 320 kb block of phase 3", 3, 3, None, None),
+            ("3x3 1e7 columns", 3, 3, LONG_SIM, 13),
+            ("7x7 320 kb", 7, 7, (32, LONG_BLOCK // 32), 14)):
+        a, bfull, pi, b = build_tables(n_ab, n_abc, dev)
+        if shape is None:
+            (block,) = [v for v in cli["v_lst"] if len(v) == LONG_BLOCK]
+            tok = torch.as_tensor(block, device=dev)
+        else:
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            tok = simulate_token_batch(a, b, pi, *shape, gen).reshape(-1)
+        cases.append((label, (a, bfull, pi), tok))
+
+    parts, breakeven = [], []
+    for label, tables, tok in cases:
+        tables = [x.contiguous() for x in tables]
+        tables32 = [x.float().contiguous() for x in tables]
+        m = tables[0].shape[0]
+        ref, plain_ms = timed(lambda: longseq.forward_loglik_long_plain(*tables, tok))
+        ref = float(ref)
+        routes = {}
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        routes["K5 + product"] = timed(
+            lambda: longseq.forward_loglik_long(*tables32, tok))
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        routes["K1 one window"] = timed(
+            lambda: cuda_fwd.forward_loglik_fused(*tables32, tok[None]))
+        if len(tok) == LONG_BLOCK:
+            routes["K2 one window"] = timed(
+                lambda: cuda_grad.loglik_and_grads_fused(*tables32, tok[None])[0])
+        errs = {}
+        for name, (value, _) in routes.items():
+            check(value.dtype == torch.float64, f"{label}: {name}'s value is "
+                                                f"{value.dtype}")
+            errs[name] = float(value) - ref
+            check(abs(errs[name]) <= LONG_RTOL * abs(ref),
+                  f"{label}: {name} off the f64 plain value by "
+                  f"{errs[name]:.4g} nats (rtol {LONG_RTOL:g})")
+        parts.append(
+            f"{label} (M={m}, {len(tok)} columns): f64 plain operator path "
+            f"{ref:.6f} nats ({plain_ms:.1f} ms; one f32 ulp there is "
+            f"{float(np.spacing(np.float32(abs(ref)))):g} nats); "
+            + ", ".join(f"{name} {ms:.3f} ms, error {errs[name]:+.4g} nats"
+                        for name, (_, ms) in routes.items())
+            + f"; K5 route peak device memory {peak} bytes")
+        if len(tok) == LONG_BLOCK:
+            breakeven.append(f"M={m} K1 one window / K5 route "
+                             f"{routes['K1 one window'][1] / routes['K5 + product'][1]:.1f}x")
+    print(f"{card} | phase 10 long-block value, three routes against the f64 "
+          f"plain operator path on the card (rtol {LONG_RTOL:g}): "
+          + "; ".join(parts) + "; " + ", ".join(breakeven))
+
+
 def main():
     import torch
 
@@ -1277,6 +1618,18 @@ def main():
     print(f"{card} | torch {torch.__version__} cuda {torch.version.cuda} | "
           f"{torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
+    try:
+        return run_phases(card, dev, t_start)
+    finally:  # no process outlives the script
+        for proc in RUNNING:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def run_phases(card, dev, t_start):
+    import torch
+
     phase_build(card)
     k1 = [phase_k1(card, dev, *shape, seed=seed, reps=10)
           for seed, shape in enumerate(K1_SHAPES)]
@@ -1288,22 +1641,27 @@ def main():
     k4 = [phase_k4(card, dev, *shape, seed=seed, reps=10)
           for seed, shape in enumerate(K1_SHAPES)]
     phase_k4_run_lengths(card, dev)
+    k5 = [phase_k5(card, dev, label, n_ab, n_abc, seed=seed, reps=10)
+          for seed, (label, n_ab, n_abc, _, _) in enumerate(K1_SHAPES)]
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
-        k1_launches, cli = phase_cli(card, dev, work)
+        k1_launches, k5_launches, cli = phase_cli(card, dev, work)
         k2_calls, best_yaml = phase_cli_grad(card, dev, work, cli)
         phase_genome(card, dev)
+        phase_cli_fd(card, dev, work, cli)  # its CPU run started in phase 3
         k3_launches = phase_viterbi_cli(card, dev, work, cli, best_yaml)
         phase_segmented(card, dev, cli, best_yaml)
         k4_launches, long_rows = phase_posterior_cli(card, dev, work, cli,
                                                      best_yaml)
         phase_posterior_segmented(card, dev, cli, best_yaml, long_rows)
+        phase_long_value(card, dev, cli)
     print(f"{card} | all phases passed in {time.perf_counter() - t_start:.1f} s")
 
-    # each record at the genome-scale 3x3 shape of phase 2; launches from
-    # the CLI run of its own path (K1: phase 3, K2: phase 4, where each K2
-    # call launches its two kernels, K3: phase 6, two kernels a call, K4:
-    # phase 8, two kernels a call)
+    # each record at the genome-scale 3x3 shape of phase 2 (K4 in f64, the
+    # posterior CLI's default; K5 on the 313 chunks of a 320 kb block);
+    # launches from the CLI run of its own path (K1 and K5: phase 3, K2:
+    # phase 4, where each K2 call launches its two kernels, K3: phase 6, two
+    # kernels a call, K4: phase 8, two kernels a call)
     record = {"kernels": [{
         "name": "k1_forward",
         "route": "cuda",
@@ -1336,6 +1694,15 @@ def main():
         "launches": k4_launches,
         "library_ms": None,  # no single PyTorch call computes the posterior
         **k4[0],
+    }, {
+        "name": "k5_chunk_operators",
+        "route": "cuda",
+        "source": "itrails_tpu_torch/csrc/operators.cu",
+        "replaces": "tools/exp_opkernel.py:97",
+        "launches": k5_launches,
+        # no single PyTorch call computes a chunk's chain of products
+        "library_ms": None,
+        **k5[0],
     }]}
     print(json.dumps(record))
     print(card)

@@ -80,9 +80,11 @@ def decode_parser(description, usage=None):
                    help="Manual cutpoints for ABC intervals")
     p.add_argument("--precision", choices=["float32", "float64"],
                    default="float64",
-                   help="Dtype of the decode with --device cpu. On the card "
-                        "the decode always runs in float32 and this flag "
-                        "has no effect.")
+                   help="Dtype of the decode (default float64). On the "
+                        "card the posterior decode (kernel K4) runs in it; "
+                        "the Viterbi decode (kernel K3) always runs in "
+                        "float32 there, and the flag acts only with "
+                        "--device cpu.")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="Device of the model build and the decode (default: "
                         "cuda; there is no automatic CPU fallback).")

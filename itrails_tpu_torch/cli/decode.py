@@ -60,7 +60,8 @@ def decode_main(argv, description, usage, posterior):
                          f"'standard' (4 species), got {obs_mode!r}")
     setup, v_lst, coords, output_dir, output_prefix = load_inputs(config, args)
     print("Calculating transition and emission probability matrices.")
-    model, a, bfull, pi = build(setup, args.precision, device)
+    model, a, bfull, pi = build(setup, args.precision, device,
+                                posterior=posterior)
     write_hidden_states(
         os.path.join(output_dir, f"{output_prefix}.hidden_states.csv"),
         model, setup, first_interval_from_ab=posterior,
@@ -93,11 +94,13 @@ def load_inputs(config, args):
     return setup, v_lst, coords, output_dir, output_prefix
 
 
-def build(setup, precision="float64", device="cuda"):
+def build(setup, precision="float64", device="cuda", posterior=False):
     """The model, built in f64 on ``device``, and the decode's
-    ``(a, bfull, pi)``: float32 on the card, ``precision`` on the CPU.  The
-    emission table is summed in f64 and then rounded, as the optimize
-    engine does (optim/optimizer.py:LoglikEngine._tables)."""
+    ``(a, bfull, pi)`` in ``precision``, except for the Viterbi decode
+    (``posterior`` False) on the card, whose kernel K3 takes float32 only;
+    the posterior's kernel K4 takes both.  The emission table is summed in
+    f64 and then rounded, as the optimize engine does
+    (optim/optimizer.py:LoglikEngine._tables)."""
     dev = resolve_device(device)
     d = setup["params"]
     model = build_model(
@@ -105,7 +108,8 @@ def build(setup, precision="float64", device="cuda"):
         d["N_AB"], d["N_ABC"], d["r"], d["n_int_AB"], d["n_int_ABC"],
         device=dev, cut_AB=setup["norm_cut_ab"], cut_ABC=setup["norm_cut_abc"],
     )
-    dtype = torch.float32 if dev.type == "cuda" else getattr(torch, precision)
+    dtype = (torch.float32 if dev.type == "cuda" and not posterior
+             else getattr(torch, precision))
     bfull = decoders.emission_table(model.b, aggregation_matrix())
     a, bfull, pi = (x.to(dtype).contiguous() for x in (model.a, bfull, model.pi))
     return model, a, bfull, pi
@@ -141,8 +145,8 @@ def write_hidden_states(path, model, setup, first_interval_from_ab: bool):
 
 
 # Blocks longer than this leave the window batch and decode as one-window
-# batches of their own (the JAX package's sequence-parallel path is the
-# long-block slice's).
+# batches of their own (the JAX package decodes them sequence-parallel; in
+# the port that is later work, after the optimize value's operator path).
 LONG_BLOCK_THRESHOLD = windows.LONG_BLOCK_THRESHOLD
 # Above this length a block decodes in bounded-memory segments
 # (decoders.viterbi_segmented) instead of with one whole pointer table.

@@ -8,6 +8,11 @@ rules.  The default, as in ``itrails-tpu-optimize``, is L-BFGS-B with
 exact gradients (kernel K2 on the card); ``--no-grad`` or
 ``settings.method: Nelder-Mead`` runs the reference's derivative-free
 algorithm.  It runs on the card unless ``--device cpu`` is given.
+
+A block above 262,144 columns takes the route of its method: under
+``--no-grad`` (Nelder-Mead, or scipy's finite-difference L-BFGS-B with
+``settings.method: L-BFGS-B``) the value path's transfer operators (kernel
+K5, ``hmm/longseq.py``); under exact gradients a one-window K2 batch.
 """
 
 from __future__ import annotations

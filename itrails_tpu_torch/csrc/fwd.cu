@@ -9,7 +9,9 @@
 //   ll_w   += log(sum((a^T alpha_{t-1}) * bfull[:, tok_t])),
 //
 // where a PAD token (-1) leaves alpha and ll unchanged.  Outputs: the
-// normalized final alpha (W, M) and the per-window loglik (W,), in f32.
+// normalized final alpha (W, M) in f32 and the per-window loglik (W,) in
+// f64, the value ll - comp of the kernel's f32 Kahan pair, so a long
+// window's loglik keeps the compensation (at ~1e8 nats one f32 ulp is 8).
 //
 // What bounds it on an H100: the product a^T alpha costs 2*M^2 flops per
 // column against 4 bytes of token traffic, so the kernel is bound by f32
@@ -36,7 +38,15 @@
 // * tokens arrive 32 columns per coalesced warp load, one chunk ahead,
 //   and reach the lanes by shuffle;
 // * the normalizer is a warp shuffle reduction; the per-window log-sum is
-//   an f32 Kahan sum, so its rounding does not grow with T.
+//   an f32 Kahan sum, so its rounding does not grow with T, and it leaves
+//   the kernel as the f64 value of the sum minus its compensation.
+//
+// The helpers below are templated on the scalar R.  K1 and K2 instantiate
+// float only; K4 (csrc/posterior.cu) also instantiates double, and K5
+// (csrc/operators.cu) reuses Mat and load_emission.  With G = true, Mat
+// reads a from a zero-padded (32S, 32S + 1) copy in global memory (L2)
+// instead of shared memory, for the sizes where shared memory cannot hold
+// it beside a kernel's other rows.
 //
 // Kernel K2 (csrc/grad.cu) includes this file: its forward launch is
 // forward_kernel with TC > 0, which also writes alpha at every chunk entry
@@ -50,6 +60,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <type_traits>
 
 namespace {
 
@@ -64,117 +75,148 @@ constexpr int kTokens = 625;  // alphabet size
 constexpr int kPad = -1;
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float warp_sum(float x) {
+template <typename R>
+__device__ __forceinline__ R warp_sum(R x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
   return x;
 }
 
+__device__ __forceinline__ float fma_r(float x, float y, float z) {
+  return fmaf(x, y, z);
+}
+__device__ __forceinline__ double fma_r(double x, double y, double z) {
+  return fma(x, y, z);
+}
+__device__ __forceinline__ float log_r(float x) { return logf(x); }
+__device__ __forceinline__ double log_r(double x) { return log(x); }
+
+// Four consecutive elements of a shared row (16-byte aligned for float,
+// 32-byte aligned for double).
+struct Four32 { float x, y, z, w; };
+struct Four64 { double x, y, z, w; };
+__device__ __forceinline__ Four32 load4(const float* p) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  return {v.x, v.y, v.z, v.w};
+}
+__device__ __forceinline__ Four64 load4(const double* p) {
+  const double2 u = *reinterpret_cast<const double2*>(p);
+  const double2 v = *reinterpret_cast<const double2*>(p + 2);
+  return {u.x, u.y, v.x, v.y};
+}
+
 // Emission of the lane's states for one token.  A PAD token is never used;
 // a token outside the alphabet gives 0, so the window's loglik becomes
 // -inf instead of reading outside the table.
-template <int S>
-__device__ __forceinline__ void load_emission(float (&e)[S],
-                                              const float* __restrict__ bt,
+template <int S, typename R>
+__device__ __forceinline__ void load_emission(R (&e)[S],
+                                              const R* __restrict__ bt,
                                               int tok, int lane) {
   const bool ok = static_cast<unsigned>(tok) < static_cast<unsigned>(kTokens);
-  const float* row = bt + static_cast<size_t>(ok ? tok : 0) * (32 * S);
+  const R* row = bt + static_cast<size_t>(ok ? tok : 0) * (32 * S);
 #pragma unroll
-  for (int k = 0; k < S; ++k) e[k] = ok ? __ldg(row + lane + 32 * k) : 0.f;
+  for (int k = 0; k < S; ++k) e[k] = ok ? __ldg(row + lane + 32 * k) : R(0);
 }
 
 // The matrix a as a warp reads it: for S == 1 each lane's column (and, for
 // K2's a x, its row; unused registers compile away) in registers, else a
-// (32S, 32S + 1) zero-padded copy in shared memory, whose odd row stride
-// lets both a^T x and a x read it without bank conflicts.
-template <int S>
+// (32S, 32S + 1) zero-padded copy in shared memory (or, with G, in global
+// memory), whose odd row stride lets both a^T x and a x read it without
+// bank conflicts.
+template <int S, typename R = float, bool G = false>
 struct Mat {
+  static_assert(S > 1 || !G, "a sits in registers at S == 1");
   static constexpr int MP = 32 * S;
   static constexpr int LDA = MP + 1;
-  float col[S == 1 ? 32 : 1];  // col[i] = a[i][lane]
-  float row[S == 1 ? 32 : 1];  // row[j] = a[lane][j]
-  const float* s_a;            // s_a[i * LDA + j] = a[i][j]
+  // elements of R that the copy of a takes in the block's shared memory
+  static constexpr int kSmem = (S > 1 && !G) ? MP * LDA : 0;
+  R col[S == 1 ? 32 : 1];  // col[i] = a[i][lane]
+  R row[S == 1 ? 32 : 1];  // row[j] = a[lane][j]
+  const R* s_a;            // s_a[i * LDA + j] = a[i][j]
   int m4;
 
-  // Fills the registers (S == 1) or the block's shared copy (S > 1); the
+  // Fills the registers (S == 1) or the block's shared copy (S > 1, !G);
+  // with G, a is already the padded (MP, LDA) copy in global memory.  The
   // caller synchronizes the block before the first product.
-  __device__ __forceinline__ void load(const float* __restrict__ a, float* smem,
+  __device__ __forceinline__ void load(const R* __restrict__ a, R* smem,
                                        int M, int lane) {
     m4 = (M + 3) & ~3;
     if constexpr (S == 1) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
-        col[i] = (i < M && lane < M) ? a[i * M + lane] : 0.f;
-        row[i] = (i < M && lane < M) ? a[lane * M + i] : 0.f;
+        col[i] = (i < M && lane < M) ? a[i * M + lane] : R(0);
+        row[i] = (i < M && lane < M) ? a[lane * M + i] : R(0);
       }
       s_a = nullptr;
+    } else if constexpr (G) {
+      s_a = a;
     } else {
       for (int idx = threadIdx.x; idx < MP * MP; idx += blockDim.x) {
         const int i = idx / MP, j = idx - (idx / MP) * MP;
-        smem[i * LDA + j] = (i < M && j < M) ? a[i * M + j] : 0.f;
+        smem[i * LDA + j] = (i < M && j < M) ? a[i * M + j] : R(0);
       }
       s_a = smem;
     }
   }
 
   // out[k] = (a^T x)_{lane + 32k}; x is a 16-byte aligned shared row of MP
-  // floats that every lane of the warp has written.
-  __device__ __forceinline__ void at_x(float (&out)[S], const float* x,
+  // elements that every lane of the warp has written.
+  __device__ __forceinline__ void at_x(R (&out)[S], const R* x,
                                        int lane) const {
     if constexpr (S == 1) {
-      float p0 = 0.f, p1 = 0.f, p2 = 0.f, p3 = 0.f;
+      R p0 = 0, p1 = 0, p2 = 0, p3 = 0;
 #pragma unroll
       for (int i = 0; i < 32; i += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(x + i);
-        p0 = fmaf(col[i], v.x, p0);
-        p1 = fmaf(col[i + 1], v.y, p1);
-        p2 = fmaf(col[i + 2], v.z, p2);
-        p3 = fmaf(col[i + 3], v.w, p3);
+        const auto v = load4(x + i);
+        p0 = fma_r(col[i], v.x, p0);
+        p1 = fma_r(col[i + 1], v.y, p1);
+        p2 = fma_r(col[i + 2], v.z, p2);
+        p3 = fma_r(col[i + 3], v.w, p3);
       }
       out[0] = (p0 + p1) + (p2 + p3);
     } else {
 #pragma unroll
-      for (int k = 0; k < S; ++k) out[k] = 0.f;
+      for (int k = 0; k < S; ++k) out[k] = 0;
       for (int i = 0; i < m4; i += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(x + i);
-        const float* r = s_a + i * LDA + lane;
+        const auto v = load4(x + i);
+        const R* r = s_a + i * LDA + lane;
 #pragma unroll
         for (int k = 0; k < S; ++k) {
-          out[k] = fmaf(r[32 * k], v.x, out[k]);
-          out[k] = fmaf(r[LDA + 32 * k], v.y, out[k]);
-          out[k] = fmaf(r[2 * LDA + 32 * k], v.z, out[k]);
-          out[k] = fmaf(r[3 * LDA + 32 * k], v.w, out[k]);
+          out[k] = fma_r(r[32 * k], v.x, out[k]);
+          out[k] = fma_r(r[LDA + 32 * k], v.y, out[k]);
+          out[k] = fma_r(r[2 * LDA + 32 * k], v.z, out[k]);
+          out[k] = fma_r(r[3 * LDA + 32 * k], v.w, out[k]);
         }
       }
     }
   }
 
   // out[k] = (a x)_{lane + 32k}, x as for at_x.
-  __device__ __forceinline__ void a_x(float (&out)[S], const float* x,
+  __device__ __forceinline__ void a_x(R (&out)[S], const R* x,
                                       int lane) const {
     if constexpr (S == 1) {
-      float p0 = 0.f, p1 = 0.f, p2 = 0.f, p3 = 0.f;
+      R p0 = 0, p1 = 0, p2 = 0, p3 = 0;
 #pragma unroll
       for (int j = 0; j < 32; j += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(x + j);
-        p0 = fmaf(row[j], v.x, p0);
-        p1 = fmaf(row[j + 1], v.y, p1);
-        p2 = fmaf(row[j + 2], v.z, p2);
-        p3 = fmaf(row[j + 3], v.w, p3);
+        const auto v = load4(x + j);
+        p0 = fma_r(row[j], v.x, p0);
+        p1 = fma_r(row[j + 1], v.y, p1);
+        p2 = fma_r(row[j + 2], v.z, p2);
+        p3 = fma_r(row[j + 3], v.w, p3);
       }
       out[0] = (p0 + p1) + (p2 + p3);
     } else {
 #pragma unroll
-      for (int k = 0; k < S; ++k) out[k] = 0.f;
+      for (int k = 0; k < S; ++k) out[k] = 0;
       for (int j = 0; j < m4; j += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(x + j);
+        const auto v = load4(x + j);
 #pragma unroll
         for (int k = 0; k < S; ++k) {
-          const float* r = s_a + (lane + 32 * k) * LDA + j;
-          out[k] = fmaf(r[0], v.x, out[k]);
-          out[k] = fmaf(r[1], v.y, out[k]);
-          out[k] = fmaf(r[2], v.z, out[k]);
-          out[k] = fmaf(r[3], v.w, out[k]);
+          const R* r = s_a + (lane + 32 * k) * LDA + j;
+          out[k] = fma_r(r[0], v.x, out[k]);
+          out[k] = fma_r(r[1], v.y, out[k]);
+          out[k] = fma_r(r[2], v.z, out[k]);
+          out[k] = fma_r(r[3], v.w, out[k]);
         }
       }
     }
@@ -184,21 +226,19 @@ struct Mat {
 // One forward column: reads alpha from the warp's shared row x, returns
 // a^T alpha in atu and the normalized next alpha, and the normalizer.
 // Every lane must have written x before the call.
-template <int S>
-__device__ __forceinline__ float forward_step(const Mat<S>& am,
-                                              const float* x,
-                                              const float (&e)[S],
-                                              float (&atu)[S],
-                                              float (&alpha)[S], int lane) {
+template <int S, typename R, bool G>
+__device__ __forceinline__ R forward_step(const Mat<S, R, G>& am, const R* x,
+                                          const R (&e)[S], R (&atu)[S],
+                                          R (&alpha)[S], int lane) {
   am.at_x(atu, x, lane);
-  float nx[S];
-  float part = 0.f;
+  R nx[S];
+  R part = 0;
 #pragma unroll
   for (int k = 0; k < S; ++k) {
     nx[k] = atu[k] * e[k];
     part += nx[k];
   }
-  const float s = warp_sum(part);
+  const R s = warp_sum(part);
 #pragma unroll
   for (int k = 0; k < S; ++k) alpha[k] = nx[k] / s;
   return s;
@@ -207,36 +247,38 @@ __device__ __forceinline__ float forward_step(const Mat<S>& am,
 // The forward recurrence over columns 1..T-1 of every window.  With
 // TC > 0 it also writes the carry before columns 1, 1 + TC, 1 + 2 TC, ...
 // into chk; a null alpha_out skips the final alpha, and a null ll_out the
-// loglik (ll0 is then not read).
-template <int S, int TC>
-__global__ void __launch_bounds__(kFwdWarps * 32, kFwdBlocksPerSM)
-forward_kernel(const float* __restrict__ a,     // (M, M) row-major
-               const float* __restrict__ bt,    // (625, 32*S), zero pad
-               const float* __restrict__ al0,   // (W, M) alpha after col 0
-               const float* __restrict__ ll0,   // (W,) log-norm of col 0
+// loglik (ll0 is then not read).  A double instantiation (K4) is capped at
+// two blocks an SM instead of four, which leaves it 128 registers.
+template <int S, int TC, typename R = float, bool G = false>
+__global__ void __launch_bounds__(kFwdWarps * 32,
+                                  sizeof(R) == 4 ? kFwdBlocksPerSM : 2)
+forward_kernel(const R* __restrict__ a,         // (M, M), or (32S, 32S+1) with G
+               const R* __restrict__ bt,        // (625, 32*S), zero pad
+               const R* __restrict__ al0,       // (W, M) alpha after col 0
+               const R* __restrict__ ll0,       // (W,) log-norm of col 0
                const int* __restrict__ tokens,  // (W, T), PAD = -1
-               float* __restrict__ alpha_out,   // (W, M) or null
-               float* __restrict__ ll_out,      // (W,) or null
-               float* __restrict__ chk,         // (n_chunks, W, 32*S), TC > 0
+               R* __restrict__ alpha_out,       // (W, M) or null
+               double* __restrict__ ll_out,     // (W,) or null
+               R* __restrict__ chk,             // (n_chunks, W, 32*S), TC > 0
                int W, int T, int M) {
   constexpr int MP = 32 * S;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* s_al = smem + (S > 1 ? MP * Mat<S>::LDA : 0);
+  R* smem = reinterpret_cast<R*>(smem4);
+  R* s_al = smem + Mat<S, R, G>::kSmem;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  Mat<S> am;
+  Mat<S, R, G> am;
   am.load(a, smem, M, lane);
   __syncthreads();
   const int w = blockIdx.x * kFwdWarps + warp;
   if (w >= W) return;  // after the only block-wide barrier
 
-  float* al = s_al + warp * MP;
-  float alpha[S];
+  R* al = s_al + warp * MP;
+  R alpha[S];
 #pragma unroll
   for (int k = 0; k < S; ++k) {
     const int j = lane + 32 * k;
-    alpha[k] = j < M ? al0[static_cast<size_t>(w) * M + j] : 0.f;
+    alpha[k] = j < M ? al0[static_cast<size_t>(w) * M + j] : R(0);
     al[j] = alpha[k];
   }
   __syncwarp();
@@ -246,34 +288,34 @@ forward_kernel(const float* __restrict__ a,     // (M, M) row-major
   int cur = 1 + lane < T ? row[1 + lane] : kPad;
   int nxt = 33 + lane < T ? row[33 + lane] : kPad;
   int tok = __shfl_sync(kFull, cur, 0);
-  float e[S];
+  R e[S];
   load_emission<S>(e, bt, tok, lane);
-  float ll = ll_out != nullptr ? ll0[w] : 0.f;
-  float comp = 0.f;  // Kahan compensation of ll
+  R ll = ll_out != nullptr ? ll0[w] : R(0);
+  R comp = 0;  // Kahan compensation of ll
 
   for (int t = 1; t < T; ++t) {
     const int off = (t - 1) & 31;
     const int tok_n = __shfl_sync(kFull, off == 31 ? nxt : cur, (off + 1) & 31);
-    float e_n[S];
+    R e_n[S];
     load_emission<S>(e_n, bt, tok_n, lane);  // consumed next step
     if constexpr (TC > 0) {
       if ((t - 1) % TC == 0) {  // chunk entry: the carry before column t
-        float* c = chk + (static_cast<size_t>((t - 1) / TC) * W + w) * MP;
+        R* c = chk + (static_cast<size_t>((t - 1) / TC) * W + w) * MP;
 #pragma unroll
         for (int k = 0; k < S; ++k) c[lane + 32 * k] = alpha[k];
       }
     }
 
     if (tok != kPad) {  // uniform across the warp: one window per warp
-      float atu[S];
-      const float s = forward_step<S>(am, al, e, atu, alpha, lane);
+      R atu[S];
+      const R s = forward_step<S>(am, al, e, atu, alpha, lane);
       __syncwarp();  // every lane has read the old alpha row
 #pragma unroll
       for (int k = 0; k < S; ++k) al[lane + 32 * k] = alpha[k];
       __syncwarp();
       if (ll_out != nullptr) {
-        const float y = logf(s) - comp;
-        const float sum = ll + y;
+        const R y = log_r(s) - comp;
+        const R sum = ll + y;
         comp = (sum - ll) - y;
         ll = sum;
       }
@@ -296,14 +338,16 @@ forward_kernel(const float* __restrict__ a,     // (M, M) row-major
       if (j < M) alpha_out[static_cast<size_t>(w) * M + j] = alpha[k];
     }
   }
-  if (ll_out != nullptr && lane == 0) ll_out[w] = ll;
+  if (ll_out != nullptr && lane == 0)  // the compensated sum
+    ll_out[w] = static_cast<double>(ll) - static_cast<double>(comp);
 }
 
-// Dynamic shared memory of forward_kernel: a (S > 1) and one alpha row a warp.
-template <int S>
+// Dynamic shared memory of forward_kernel: a (S > 1, !G) and one alpha row
+// a warp.
+template <int S, typename R = float, bool G = false>
 size_t forward_smem() {
-  return static_cast<size_t>((S > 1 ? 32 * S * Mat<S>::LDA : 0) +
-                             kFwdWarps * 32 * S) * sizeof(float);
+  return static_cast<size_t>(Mat<S, R, G>::kSmem + kFwdWarps * 32 * S) *
+         sizeof(R);
 }
 
 template <typename K>
@@ -316,14 +360,30 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 template <int S>
 int launch_k1(const float* a, const float* bt, const float* al0,
               const float* ll0, const int* tokens, float* alpha_out,
-              float* ll_out, int W, int T, int M, cudaStream_t stream) {
+              double* ll_out, int W, int T, int M, cudaStream_t stream) {
   const size_t smem = forward_smem<S>();
-  const cudaError_t err = allow_smem(forward_kernel<S, 0>, smem);
+  const cudaError_t err =
+      allow_smem(forward_kernel<S, 0, float, false>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((W + kFwdWarps - 1) / kFwdWarps);
-  forward_kernel<S, 0><<<grid, kFwdWarps * 32, smem, stream>>>(
+  forward_kernel<S, 0, float, false><<<grid, kFwdWarps * 32, smem, stream>>>(
       a, bt, al0, ll0, tokens, alpha_out, ll_out, nullptr, W, T, M);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Calls f with std::integral_constant<int, S> for S = (M + 31) / 32, the
+// states a lane owns (M <= 32 * kMaxS).
+template <typename F>
+int dispatch_s(int M, F&& f) {
+  switch ((M + 31) / 32) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 5: return f(std::integral_constant<int, 5>{});
+    case 6: return f(std::integral_constant<int, 6>{});
+    default: return f(std::integral_constant<int, 7>{});
+  }
 }
 
 }  // namespace
@@ -337,19 +397,14 @@ int k1_max_states() { return 32 * kMaxS; }
 
 int k1_forward(const float* a, const float* bt, const float* al0,
                const float* ll0, const int* tokens, float* alpha_out,
-               float* ll_out, int W, int T, int M, void* stream) {
+               double* ll_out, int W, int T, int M, void* stream) {
   if (W < 1 || T < 1 || M < 1 || M > 32 * kMaxS)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((M + 31) / 32) {
-    case 1: return launch_k1<1>(a, bt, al0, ll0, tokens, alpha_out, ll_out, W, T, M, s);
-    case 2: return launch_k1<2>(a, bt, al0, ll0, tokens, alpha_out, ll_out, W, T, M, s);
-    case 3: return launch_k1<3>(a, bt, al0, ll0, tokens, alpha_out, ll_out, W, T, M, s);
-    case 4: return launch_k1<4>(a, bt, al0, ll0, tokens, alpha_out, ll_out, W, T, M, s);
-    case 5: return launch_k1<5>(a, bt, al0, ll0, tokens, alpha_out, ll_out, W, T, M, s);
-    case 6: return launch_k1<6>(a, bt, al0, ll0, tokens, alpha_out, ll_out, W, T, M, s);
-    default: return launch_k1<7>(a, bt, al0, ll0, tokens, alpha_out, ll_out, W, T, M, s);
-  }
+  return dispatch_s(M, [&](auto sc) {
+    return launch_k1<decltype(sc)::value>(a, bt, al0, ll0, tokens, alpha_out,
+                                          ll_out, W, T, M, s);
+  });
 }
 
 const char* k1_error_string(int code) {

@@ -16,9 +16,10 @@
 //
 // Every per-step normalization cancels inside Z_t, so no log bookkeeping
 // is needed.  A PAD token (-1) leaves alpha, beta and the sums unchanged.
-// Outputs: the per-window loglik (W,), beta at the origin (W, 32*S), and
-// per-block partial sums of dA (G, 32*S, 32*S) and dB (G, 625, 32*S); the
-// wrapper sums the partials over blocks in a fixed order and does column 0.
+// Outputs: the per-window loglik (W,) in f64 (K1's compensated sum), beta
+// at the origin (W, 32*S), and per-block partial sums of dA (G, 32*S, 32*S)
+// and dB (G, 625, 32*S); the wrapper sums the partials over blocks in a
+// fixed order and does column 0.
 //
 // Two launches per call:
 // * the forward: K1's kernel (csrc/fwd.cu, included below) instantiated to
@@ -237,19 +238,19 @@ size_t backward_smem() {
 
 template <int S>
 int launch_k2(const float* a, const float* bt, const float* al0,
-              const float* ll0, const int* tokens, float* chk, float* ll_out,
+              const float* ll0, const int* tokens, float* chk, double* ll_out,
               float* beta0, float* da_part, float* db_part, int W, int T,
               int M, cudaStream_t stream) {
   const size_t fsm = forward_smem<S>();
   const size_t bsm = backward_smem<S>();
   constexpr int TC = Bwd<S>::kChunk;
-  cudaError_t err = allow_smem(forward_kernel<S, TC>, fsm);
+  cudaError_t err = allow_smem(forward_kernel<S, TC, float, false>, fsm);
   if (err == cudaSuccess) err = allow_smem(k2_backward_kernel<S>, bsm);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_chunks = (T - 1 + TC - 1) / TC;
-  forward_kernel<S, TC><<<(W + kFwdWarps - 1) / kFwdWarps, kFwdWarps * 32, fsm,
-                          stream>>>(a, bt, al0, ll0, tokens, nullptr, ll_out,
-                                    chk, W, T, M);
+  forward_kernel<S, TC, float, false>
+      <<<(W + kFwdWarps - 1) / kFwdWarps, kFwdWarps * 32, fsm, stream>>>(
+          a, bt, al0, ll0, tokens, nullptr, ll_out, chk, W, T, M);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   constexpr int NW = Bwd<S>::kWarps;
@@ -284,7 +285,7 @@ int k2_blocks(int W, int M) {
 
 int k2_loglik_and_grads(const float* a, const float* bt, const float* al0,
                         const float* ll0, const int* tokens, float* chk,
-                        float* ll_out, float* beta0, float* da_part,
+                        double* ll_out, float* beta0, float* da_part,
                         float* db_part, int W, int T, int M, void* stream) {
   if (W < 1 || T < 1 || M < 1 || M > 32 * kGradMaxS)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -44,7 +44,19 @@
 // * with a null store the reverse kernel is the beta sweep alone: it reads
 //   no alpha and writes no gamma, and returns beta at the window's first
 //   column (the segmented route's reverse pass); with a store, beta at
-//   the first column is written only where the caller asks for it.
+//   the first column is written only where the caller asks for it;
+// * both kernels are instantiated on float and on double (the posterior
+//   CLI's default, --precision float64): the same code on the scalar R,
+//   so the float instantiation keeps the f32 K4's bits.  f32 tables alone
+//   put the posterior off by up to 2.4e-4 on windows whose state runs are
+//   tens of thousands of columns long, which f64 removes.  In double a
+//   sits in shared memory up to M = 160 (S = 5: 206 KB of a and 10 KB of
+//   rows); above that its (32S, 32S + 1) copy (296 KB at S = 6) does not
+//   fit the 227 KB a block may use, and the kernels read a zero-padded
+//   copy in global memory that stays in L2 (k4_global_a).  The store's
+//   rows are 8 bytes a state in double; the callers' byte budget counts
+//   them so.  In double the bound is f64 issue, 34 TFLOP/s outside the
+//   tensor cores (NVIDIA data sheet, H100 SXM).
 //
 // Launch contract: the C entry points enqueue on the given stream, do not
 // synchronize, allocate nothing, and return cudaGetLastError().
@@ -53,81 +65,90 @@
 
 namespace {
 
+// Whether K4 on scalar R reads a from a padded copy in global memory (L2):
+// in double above S = 5 the (32S, 32S + 1) copy no longer fits the 227 KB
+// of shared memory a block may use beside the warps' rows (S = 5: 206 KB
+// of a and 10 KB of rows; S = 6: 296 KB of a).
+template <int S, typename R>
+constexpr bool k4_global_a() {
+  return sizeof(R) == 8 && S > 5;
+}
+
 // The reverse sweep over columns T-1..0 of every window: gamma over the
 // alpha store (unless it is null) and beta at column 0 (unless
 // beta_first is null).
-template <int S>
+template <int S, typename R, bool G>
 __global__ void __launch_bounds__(kFwdWarps * 32)
-k4_reverse_kernel(const float* __restrict__ a,          // (M, M) row-major
-                  const float* __restrict__ bt,         // (625, 32*S), zero pad
-                  const int* __restrict__ tokens,       // (W, T), PAD = -1
-                  const float* __restrict__ beta_exit,  // (W, M) or null: ones
-                  const float* __restrict__ alpha_fin,  // (W, M) alpha_{T-1}
-                  float* __restrict__ store,            // (T, W, 32*S) or null
-                  float* __restrict__ beta_first,       // (W, M) or null
+k4_reverse_kernel(const R* __restrict__ a,          // (M, M), or (32S, 32S+1) with G
+                  const R* __restrict__ bt,         // (625, 32*S), zero pad
+                  const int* __restrict__ tokens,   // (W, T), PAD = -1
+                  const R* __restrict__ beta_exit,  // (W, M) or null: ones
+                  const R* __restrict__ alpha_fin,  // (W, M) alpha_{T-1}
+                  R* __restrict__ store,            // (T, W, 32*S) or null
+                  R* __restrict__ beta_first,       // (W, M) or null
                   int W, int T, int M) {
   constexpr int MP = 32 * S;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* s_x = smem + (S > 1 ? MP * Mat<S>::LDA : 0);
+  R* smem = reinterpret_cast<R*>(smem4);
+  R* s_x = smem + Mat<S, R, G>::kSmem;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  Mat<S> am;
+  Mat<S, R, G> am;
   am.load(a, smem, M, lane);
   __syncthreads();
   const int w = blockIdx.x * kFwdWarps + warp;
   if (w >= W) return;  // after the only block-wide barrier
 
-  float* x = s_x + warp * MP;
-  float beta[S];
+  R* x = s_x + warp * MP;
+  R beta[S];
 #pragma unroll
   for (int k = 0; k < S; ++k) {
     const int j = lane + 32 * k;
     beta[k] = j < M ? (beta_exit != nullptr
                            ? beta_exit[static_cast<size_t>(w) * M + j]
-                           : 1.f)
-                    : 0.f;
-    x[j] = 0.f;
+                           : R(1))
+                    : R(0);
+    x[j] = 0;
   }
   __syncwarp();
 
   const int* row = tokens + static_cast<size_t>(w) * T;
   int tok = T > 1 ? __ldg(row + T - 1) : kPad;
-  float e[S];
+  R e[S];
   load_emission<S>(e, bt, tok, lane);
-  float al[S];  // alpha_t, read one step ahead
+  R al[S];  // alpha_t, read one step ahead
 #pragma unroll
   for (int k = 0; k < S; ++k) {
     const int j = lane + 32 * k;
     al[k] = store != nullptr && j < M
                 ? alpha_fin[static_cast<size_t>(w) * M + j]
-                : 0.f;
+                : R(0);
   }
 
   for (int t = T - 1; t >= 0; --t) {
     const int tok_n = t > 1 ? __ldg(row + t - 1) : kPad;
-    float e_n[S];
+    R e_n[S];
     load_emission<S>(e_n, bt, tok_n, lane);  // consumed next step
-    float al_n[S];
+    R al_n[S];
 #pragma unroll
-    for (int k = 0; k < S; ++k) al_n[k] = 0.f;
+    for (int k = 0; k < S; ++k) al_n[k] = 0;
     if (store != nullptr && t > 0) {  // row t-1 still holds alpha_{t-1}
-      const float* r = store + (static_cast<size_t>(t - 1) * W + w) * MP;
+      const R* r = store + (static_cast<size_t>(t - 1) * W + w) * MP;
 #pragma unroll
       for (int k = 0; k < S; ++k) al_n[k] = r[lane + 32 * k];
     }
 
     if (store != nullptr) {  // gamma_t = normalize(alpha_t * beta_t)
-      float* r = store + (static_cast<size_t>(t) * W + w) * MP;
-      float g[S];
-      float part = 0.f;
+      R* r = store + (static_cast<size_t>(t) * W + w) * MP;
+      R g[S];
+      R part = 0;
 #pragma unroll
       for (int k = 0; k < S; ++k) {
         g[k] = al[k] * beta[k];
         part += g[k];
       }
-      const float s = warp_sum(part);
-      const float d = s > 0.f ? s : 1.f;
+      const R s = warp_sum(part);
+      const R d = s > R(0) ? s : R(1);
 #pragma unroll
       for (int k = 0; k < S; ++k) r[lane + 32 * k] = g[k] / d;
     }
@@ -136,13 +157,13 @@ k4_reverse_kernel(const float* __restrict__ a,          // (M, M) row-major
 #pragma unroll
       for (int k = 0; k < S; ++k) x[lane + 32 * k] = e[k] * beta[k];
       __syncwarp();
-      float nx[S];
+      R nx[S];
       am.at_x(nx, x, lane);
-      float part = 0.f;
+      R part = 0;
 #pragma unroll
       for (int k = 0; k < S; ++k) part += nx[k];
-      const float s = warp_sum(part);
-      const float d = s > 0.f ? s : 1.f;
+      const R s = warp_sum(part);
+      const R d = s > R(0) ? s : R(1);
 #pragma unroll
       for (int k = 0; k < S; ++k) beta[k] = nx[k] / d;
       __syncwarp();  // every lane has read x before it is written again
@@ -164,31 +185,57 @@ k4_reverse_kernel(const float* __restrict__ a,          // (M, M) row-major
   }
 }
 
-template <int S>
-int launch_forward(const float* a, const float* bt, const float* al0,
-                   const int* tokens, float* store, float* alpha_fin, int W,
+template <int S, typename R>
+int launch_forward(const void* a, const void* bt, const void* al0,
+                   const int* tokens, void* store, void* alpha_fin, int W,
                    int T, int M, cudaStream_t stream) {
-  const size_t smem = forward_smem<S>();
-  const cudaError_t err = allow_smem(forward_kernel<S, 1>, smem);
+  constexpr bool G = k4_global_a<S, R>();
+  const size_t smem = forward_smem<S, R, G>();
+  const cudaError_t err = allow_smem(forward_kernel<S, 1, R, G>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  forward_kernel<S, 1><<<(W + kFwdWarps - 1) / kFwdWarps, kFwdWarps * 32, smem,
-                         stream>>>(a, bt, al0, nullptr, tokens, alpha_fin,
-                                   nullptr, store, W, T, M);
+  forward_kernel<S, 1, R, G>
+      <<<(W + kFwdWarps - 1) / kFwdWarps, kFwdWarps * 32, smem, stream>>>(
+          static_cast<const R*>(a), static_cast<const R*>(bt),
+          static_cast<const R*>(al0), nullptr, tokens,
+          static_cast<R*>(alpha_fin), nullptr, static_cast<R*>(store), W, T, M);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int S>
-int launch_reverse(const float* a, const float* bt, const int* tokens,
-                   const float* beta_exit, const float* alpha_fin,
-                   float* store, float* beta_first, int W, int T, int M,
+template <int S, typename R>
+int launch_reverse(const void* a, const void* bt, const int* tokens,
+                   const void* beta_exit, const void* alpha_fin, void* store,
+                   void* beta_first, int W, int T, int M,
                    cudaStream_t stream) {
-  const size_t smem = forward_smem<S>();  // the same a and one row a warp
-  const cudaError_t err = allow_smem(k4_reverse_kernel<S>, smem);
+  constexpr bool G = k4_global_a<S, R>();
+  const size_t smem = forward_smem<S, R, G>();  // the same a and one row a warp
+  const cudaError_t err = allow_smem(k4_reverse_kernel<S, R, G>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  k4_reverse_kernel<S><<<(W + kFwdWarps - 1) / kFwdWarps, kFwdWarps * 32, smem,
-                         stream>>>(a, bt, tokens, beta_exit, alpha_fin, store,
-                                   beta_first, W, T, M);
+  k4_reverse_kernel<S, R, G>
+      <<<(W + kFwdWarps - 1) / kFwdWarps, kFwdWarps * 32, smem, stream>>>(
+          static_cast<const R*>(a), static_cast<const R*>(bt), tokens,
+          static_cast<const R*>(beta_exit), static_cast<const R*>(alpha_fin),
+          static_cast<R*>(store), static_cast<R*>(beta_first), W, T, M);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename R>
+int k4_forward_r(const void* a, const void* bt, const void* al0,
+                 const int* tokens, void* store, void* alpha_fin, int W, int T,
+                 int M, cudaStream_t s) {
+  return dispatch_s(M, [&](auto sc) {
+    return launch_forward<decltype(sc)::value, R>(a, bt, al0, tokens, store,
+                                                  alpha_fin, W, T, M, s);
+  });
+}
+
+template <typename R>
+int k4_reverse_r(const void* a, const void* bt, const int* tokens,
+                 const void* beta_exit, const void* alpha_fin, void* store,
+                 void* beta_first, int W, int T, int M, cudaStream_t s) {
+  return dispatch_s(M, [&](auto sc) {
+    return launch_reverse<decltype(sc)::value, R>(
+        a, bt, tokens, beta_exit, alpha_fin, store, beta_first, W, T, M, s);
+  });
 }
 
 }  // namespace
@@ -200,43 +247,41 @@ int k4_table_width(int M) { return 32 * ((M + 31) / 32); }
 
 int k4_max_states() { return 32 * kMaxS; }
 
+// Row stride of the zero-padded (32S, 32S + 1) copy of a that K4 reads
+// from global memory at M states in double (f64 != 0) or float, or 0 where
+// it takes a as the plain (M, M) matrix.
+int k4_a_stride(int M, int f64) {
+  const int S = (M + 31) / 32;
+  return f64 != 0 && S > 5 ? 32 * S + 1 : 0;
+}
+
 // The forward: alpha_t into store row t for t < T-1, alpha_{T-1} into
-// alpha_fin (W, M).
-int k4_forward(const float* a, const float* bt, const float* al0,
-               const int* tokens, float* store, float* alpha_fin, int W,
-               int T, int M, void* stream) {
+// alpha_fin (W, M).  Every float argument is double where f64 != 0.
+int k4_forward(const void* a, const void* bt, const void* al0,
+               const int* tokens, void* store, void* alpha_fin, int W, int T,
+               int M, int f64, void* stream) {
   if (W < 1 || T < 1 || M < 1 || M > 32 * kMaxS)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((M + 31) / 32) {
-    case 1: return launch_forward<1>(a, bt, al0, tokens, store, alpha_fin, W, T, M, s);
-    case 2: return launch_forward<2>(a, bt, al0, tokens, store, alpha_fin, W, T, M, s);
-    case 3: return launch_forward<3>(a, bt, al0, tokens, store, alpha_fin, W, T, M, s);
-    case 4: return launch_forward<4>(a, bt, al0, tokens, store, alpha_fin, W, T, M, s);
-    case 5: return launch_forward<5>(a, bt, al0, tokens, store, alpha_fin, W, T, M, s);
-    case 6: return launch_forward<6>(a, bt, al0, tokens, store, alpha_fin, W, T, M, s);
-    default: return launch_forward<7>(a, bt, al0, tokens, store, alpha_fin, W, T, M, s);
-  }
+  return f64 != 0
+             ? k4_forward_r<double>(a, bt, al0, tokens, store, alpha_fin, W, T, M, s)
+             : k4_forward_r<float>(a, bt, al0, tokens, store, alpha_fin, W, T, M, s);
 }
 
 // The reverse sweep: gamma over the store (alpha_fin gives alpha_{T-1})
 // and beta at column 0 into beta_first (W, M) unless it is null.  A null
 // store sweeps beta alone; a null beta_exit starts from ones.
-int k4_reverse(const float* a, const float* bt, const int* tokens,
-               const float* beta_exit, const float* alpha_fin, float* store,
-               float* beta_first, int W, int T, int M, void* stream) {
+int k4_reverse(const void* a, const void* bt, const int* tokens,
+               const void* beta_exit, const void* alpha_fin, void* store,
+               void* beta_first, int W, int T, int M, int f64, void* stream) {
   if (W < 1 || T < 1 || M < 1 || M > 32 * kMaxS)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((M + 31) / 32) {
-    case 1: return launch_reverse<1>(a, bt, tokens, beta_exit, alpha_fin, store, beta_first, W, T, M, s);
-    case 2: return launch_reverse<2>(a, bt, tokens, beta_exit, alpha_fin, store, beta_first, W, T, M, s);
-    case 3: return launch_reverse<3>(a, bt, tokens, beta_exit, alpha_fin, store, beta_first, W, T, M, s);
-    case 4: return launch_reverse<4>(a, bt, tokens, beta_exit, alpha_fin, store, beta_first, W, T, M, s);
-    case 5: return launch_reverse<5>(a, bt, tokens, beta_exit, alpha_fin, store, beta_first, W, T, M, s);
-    case 6: return launch_reverse<6>(a, bt, tokens, beta_exit, alpha_fin, store, beta_first, W, T, M, s);
-    default: return launch_reverse<7>(a, bt, tokens, beta_exit, alpha_fin, store, beta_first, W, T, M, s);
-  }
+  return f64 != 0
+             ? k4_reverse_r<double>(a, bt, tokens, beta_exit, alpha_fin, store,
+                                    beta_first, W, T, M, s)
+             : k4_reverse_r<float>(a, bt, tokens, beta_exit, alpha_fin, store,
+                                   beta_first, W, T, M, s);
 }
 
 const char* k4_error_string(int code) {

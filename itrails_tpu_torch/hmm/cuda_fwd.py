@@ -4,8 +4,10 @@ plain PyTorch version and its build.
 K1 (``csrc/fwd.cu``) replaces the Pallas TPU kernel
 ``itrails_tpu/hmm/pallas_fwd.py:327 forward_fused``.  It computes the
 Rabiner-scaled linear forward recurrence over a (W, T) token batch in f32:
-exact table lookups and a full-f32 transition product.  The source note in
-``fwd.cu`` states what bounds it and what its design does about that.
+exact table lookups and a full-f32 transition product.  Each window's
+loglik is an f32 Kahan sum that leaves the kernel as the f64 value of the
+sum minus its compensation.  The source note in ``fwd.cu`` states what
+bounds it and what its design does about that.
 
 :func:`forward_fused` launches K1 for tensors on a CUDA device and runs
 :func:`forward_fused_plain`, the same function in plain PyTorch, only for
@@ -78,10 +80,11 @@ def column0(bfull, pi, tok0):
     return e0, al0 / s0[:, None], s0
 
 
-def check_inputs(name, a, bfull, pi, tokens, max_states):
+def check_inputs(name, a, bfull, pi, tokens, max_states,
+                 dtype=torch.float32):
     """Raise unless the tables and tokens are what a kernel takes: a (W, T)
-    int32 token batch and float32 tables a (M, M), bfull (M, 625), pi (M,)
-    (unless it is None: a kernel that does not read it) with
+    int32 token batch and tables a (M, M), bfull (M, 625), pi (M,) (unless
+    it is None: a kernel that does not read it) of ``dtype`` with
     1 <= M <= ``max_states``, all contiguous on the tokens' device."""
     dev = tokens.device
     if tokens.dim() != 2 or tokens.dtype != torch.int32:
@@ -92,8 +95,9 @@ def check_inputs(name, a, bfull, pi, tokens, max_states):
     if pi is not None:
         expect["pi"] = (pi, (m,))
     for label, (x, shape) in expect.items():
-        if x.device != dev or x.dtype != torch.float32:
-            raise ValueError(f"{name}: {label} must be float32 on {dev}, "
+        if x.device != dev or x.dtype != dtype:
+            raise ValueError(f"{name}: {label} must be "
+                             f"{str(dtype).removeprefix('torch.')} on {dev}, "
                              f"got {x.dtype} on {x.device}")
         if tuple(x.shape) != shape:
             raise ValueError(f"{name}: {label} must have shape {shape}, "
@@ -150,8 +154,9 @@ def forward_fused(a, bfull, pi, tokens):
     distribution, and loglik (W,), the per-window log-likelihoods;
     ``log(alpha) + loglik[:, None]`` is the log-space alpha of
     ``decoders.forward``.  On CUDA the inputs must be contiguous float32
-    (int32 tokens) and the result is float32; on the CPU the plain version
-    runs in the dtype of ``a``.
+    (int32 tokens); alpha is then float32 and loglik float64 (the kernel's
+    compensated f32 sum).  On the CPU the plain version runs in the dtype
+    of ``a``.
     """
     if tokens.device.type == "cpu":
         return forward_fused_plain(a, bfull, pi, tokens)
@@ -170,7 +175,7 @@ def forward_fused(a, bfull, pi, tokens):
                          dtype=torch.float32, device=dev)
         bt[:, :m] = bfull.T
         alpha = torch.empty((w, m), dtype=torch.float32, device=dev)
-        ll = torch.empty((w,), dtype=torch.float32, device=dev)
+        ll = torch.empty((w,), dtype=torch.float64, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.k1_forward(a.data_ptr(), bt.data_ptr(), al0.data_ptr(),
                             ll0.data_ptr(), tokens.data_ptr(),
@@ -189,6 +194,8 @@ forward_fused.launches = 0  # K1 launches since the last reset to 0
 def forward_loglik_fused(a, bfull, pi, tokens):
     """Total log-likelihood of a (W, T) token batch.  The per-window values
     are summed in f64: a genome-scale total is ~1e6 nats where one f32 ULP
-    is 0.125, coarse enough to hide a short optimizer step's improvement."""
+    is 0.125, coarse enough to hide a short optimizer step's improvement;
+    on the card each window's value is already f64 (K1's compensated
+    sum)."""
     _, ll = forward_fused(a, bfull, pi, tokens)
     return ll.to(torch.float64).sum()

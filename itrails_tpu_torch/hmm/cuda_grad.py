@@ -132,7 +132,8 @@ def loglik_and_grads_fused(a, bfull, pi, tokens):
       pi: (M,) initial distribution.
       tokens: (W, T) integer tokens, right-padded with PAD_TOKEN.
 
-    The total is float64, the per-window logliks summed in f64.  On CUDA
+    The total is float64, the per-window logliks summed in f64 (on CUDA
+    each is K1's compensated sum, already f64).  On CUDA
     the inputs must be contiguous float32 (int32 tokens) and the gradients
     are float32; on the CPU the plain version runs in the dtype of ``a``.
     """
@@ -160,7 +161,7 @@ def loglik_and_grads_fused(a, bfull, pi, tokens):
         bt = torch.zeros((N_TOKENS, mp), **f32)
         bt[:, :m] = bfull.T
         chk = torch.empty((n_chunks, w, mp), **f32)
-        ll = torch.empty((w,), **f32)
+        ll = torch.empty((w,), dtype=torch.float64, device=dev)
         beta0 = torch.empty((w, mp), **f32)
         da_part = torch.zeros((n_blocks, mp, mp), **f32)
         db_part = torch.zeros((n_blocks, N_TOKENS, mp), **f32)

@@ -19,6 +19,10 @@ window to its length.  The reverse sweep contracts over the source state,
 the textbook ``a x``.  Emission rows follow ``cuda_fwd.emission_rows``, the
 port's one PAD/invalid-token rule.
 
+K4 runs in float32 or in float64, the dtype of the tables it is given: the
+same kernels instantiated on each scalar.  The posterior CLI's default,
+``--precision float64``, runs it in f64 on the card.
+
 :func:`posterior_fused` launches K4 for tensors on a CUDA device and runs
 :func:`posterior_fused_plain` only for tensors on the CPU; a CUDA input
 that the kernel does not take raises.  It takes an entry alpha in place of
@@ -26,8 +30,7 @@ column 0 and an exit beta in place of the ones, and :func:`beta_sweep` runs
 the reverse sweep alone; the segmented route
 (``hmm/decoders.py:posterior_segmented``) needs all three.  A call holds
 one store, the alpha that the reverse sweep overwrites with gamma: (T, W,
-32S) float32 on the card, (T, W, M) in the tables' dtype in the plain
-version.  Callers keep it under POSTERIOR_BUDGET_BYTES with
+32S) on the card, (T, W, M) in the plain version, in the tables' dtype.  Callers keep it under POSTERIOR_BUDGET_BYTES with
 :func:`store_row_bytes` and :func:`window_group`.
 
 The kernel is compiled with ``nvcc`` for ``sm_90a`` at its first use
@@ -51,8 +54,8 @@ __all__ = ["POSTERIOR_BUDGET_BYTES", "beta_sweep", "beta_sweep_plain", "build",
 
 _SRC = CSRC / "posterior.cu"
 # Bytes of one call's store: on the card 4096 windows of 8192 columns at
-# M <= 32.  A single window above it is decoded in segments
-# (hmm/decoders.py:posterior_stream).
+# M <= 32 in float32, 2048 in float64.  A single window above it is decoded
+# in segments (hmm/decoders.py:posterior_stream).
 POSTERIOR_BUDGET_BYTES = 1 << 32
 # Columns whose emission rows the plain version gathers at once.
 _CHUNK = 1024
@@ -72,12 +75,14 @@ def _library():
         lib = ctypes.CDLL(str(path))
         lib.k4_forward.restype = ctypes.c_int
         lib.k4_forward.argtypes = ([ctypes.c_void_p] * 6
-                                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         lib.k4_reverse.restype = ctypes.c_int
         lib.k4_reverse.argtypes = ([ctypes.c_void_p] * 7
-                                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         lib.k4_table_width.restype = ctypes.c_int
         lib.k4_table_width.argtypes = [ctypes.c_int]
+        lib.k4_a_stride.restype = ctypes.c_int
+        lib.k4_a_stride.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.k4_max_states.restype = ctypes.c_int
         lib.k4_max_states.argtypes = []
         lib.k4_error_string.restype = ctypes.c_char_p
@@ -157,11 +162,12 @@ def beta_sweep_plain(a, bfull, tokens, beta_exit=None):
 
 def store_row_bytes(m: int, device, dtype) -> int:
     """Bytes of the store that one column of one window takes in a call on
-    ``device`` with tables of ``dtype``: 32S float32 on the card, M of the
-    tables' dtype in the plain version."""
+    ``device`` with tables of ``dtype``: 32S elements on the card, M in the
+    plain version."""
+    size = torch.empty((), dtype=dtype).element_size()
     if torch.device(device).type == "cuda":
-        return 4 * 32 * -(-m // 32)
-    return m * torch.empty((), dtype=dtype).element_size()
+        return size * 32 * -(-m // 32)
+    return m * size
 
 
 def window_group(t_len: int, row_bytes: int) -> int:
@@ -172,20 +178,34 @@ def window_group(t_len: int, row_bytes: int) -> int:
 
 
 def _prepare(name, a, bfull, pi, tokens, beta_exit):
-    """Checks the inputs of a launch; returns the library and the padded
-    transposed emission table (625, 32S)."""
+    """Checks the inputs of a launch; returns the library, the matrix a as
+    the kernel reads it (a zero-padded copy where it reads a from global
+    memory), the padded transposed emission table (625, 32S) and the f64
+    flag of the launch."""
     if tokens.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {tokens.device}")
     lib = _library()
-    check_inputs(name, a, bfull, pi, tokens, lib.k4_max_states())
+    dtype = a.dtype
+    tables = [x for x in (a, bfull, pi) if x is not None]
+    if (dtype not in (torch.float32, torch.float64)
+            or any(x.dtype != dtype for x in tables)):
+        raise ValueError(f"{name}: the tables must be all float32 or all "
+                         f"float64, got {[x.dtype for x in tables]}")
+    check_inputs(name, a, bfull, pi, tokens, lib.k4_max_states(), dtype)
     m = a.shape[0]
     if beta_exit is not None:
         check_state(name, "beta_exit", beta_exit, (tokens.shape[0], m),
-                    torch.float32, tokens.device)
-    bt = torch.zeros((N_TOKENS, lib.k4_table_width(m)), dtype=torch.float32,
-                     device=tokens.device)
+                    dtype, tokens.device)
+    f64 = int(dtype == torch.float64)
+    width = lib.k4_table_width(m)
+    bt = torch.zeros((N_TOKENS, width), dtype=dtype, device=tokens.device)
     bt[:, :m] = bfull.T
-    return lib, bt
+    stride = lib.k4_a_stride(m, f64)
+    if stride:
+        padded = torch.zeros((width, stride), dtype=dtype, device=tokens.device)
+        padded[:m, :m] = a
+        a = padded
+    return lib, a, bt, f64
 
 
 def _check_rc(lib, rc):
@@ -206,35 +226,36 @@ def posterior_fused(a, bfull, pi, tokens, alpha0=None, beta_exit=None):
 
     Returns ``(post, alpha)``: post (T, W, M), in which padded steps are
     garbage (mask with ``tokens != PAD_TOKEN``), and the normalized alpha
-    (W, M) at column T-1.  On CUDA the inputs must be contiguous float32
-    (int32 tokens) with M <= 224; post is then a view of the (T, W, 32S)
-    store, and the call launches K4's two kernels.  On the CPU the plain
-    version runs in the dtype of ``a``.
+    (W, M) at column T-1.  On CUDA the inputs must be contiguous float32 or
+    float64 tables, all of one dtype, and int32 tokens, with M <= 224; post
+    is then a view of the (T, W, 32S) store in that dtype, and the call
+    launches K4's two kernels.  On the CPU the plain version runs in the
+    dtype of ``a``.
     """
     if tokens.device.type == "cpu":
         return posterior_fused_plain(a, bfull, pi, tokens, alpha0, beta_exit)
-    lib, bt = _prepare("posterior_fused", a, bfull, pi, tokens, beta_exit)
+    lib, a_k, bt, f64 = _prepare("posterior_fused", a, bfull, pi, tokens,
+                                 beta_exit)
     dev = tokens.device
     w, t_len = tokens.shape
     m = a.shape[0]
     if alpha0 is not None:
-        check_state("posterior_fused", "alpha0", alpha0, (w, m), torch.float32,
-                    dev)
+        check_state("posterior_fused", "alpha0", alpha0, (w, m), a.dtype, dev)
 
     with torch.cuda.device(dev):
         al0 = (column0(bfull, pi, tokens[:, 0])[1].contiguous()
                if alpha0 is None else alpha0)
-        store = torch.empty((t_len, w, bt.shape[1]), dtype=torch.float32,
-                            device=dev)
-        alpha = torch.empty((w, m), dtype=torch.float32, device=dev)
+        store = torch.empty((t_len, w, bt.shape[1]), dtype=a.dtype, device=dev)
+        alpha = torch.empty((w, m), dtype=a.dtype, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         _check_rc(lib, lib.k4_forward(
-            a.data_ptr(), bt.data_ptr(), al0.data_ptr(), tokens.data_ptr(),
-            store.data_ptr(), alpha.data_ptr(), w, t_len, m, stream))
+            a_k.data_ptr(), bt.data_ptr(), al0.data_ptr(), tokens.data_ptr(),
+            store.data_ptr(), alpha.data_ptr(), w, t_len, m, f64, stream))
         posterior_fused.launches += 1
         _check_rc(lib, lib.k4_reverse(
-            a.data_ptr(), bt.data_ptr(), tokens.data_ptr(), _ptr(beta_exit),
-            alpha.data_ptr(), store.data_ptr(), None, w, t_len, m, stream))
+            a_k.data_ptr(), bt.data_ptr(), tokens.data_ptr(), _ptr(beta_exit),
+            alpha.data_ptr(), store.data_ptr(), None, w, t_len, m, f64,
+            stream))
         posterior_fused.launches += 1
     posterior_fused.calls += 1
     return store[:, :, :m], alpha
@@ -252,14 +273,15 @@ def beta_sweep(a, bfull, tokens, beta_exit=None):
     version runs."""
     if tokens.device.type == "cpu":
         return beta_sweep_plain(a, bfull, tokens, beta_exit)
-    lib, bt = _prepare("beta_sweep", a, bfull, None, tokens, beta_exit)
+    lib, a_k, bt, f64 = _prepare("beta_sweep", a, bfull, None, tokens,
+                                 beta_exit)
     dev = tokens.device
     w, t_len = tokens.shape
     with torch.cuda.device(dev):
-        beta0 = torch.empty((w, a.shape[0]), dtype=torch.float32, device=dev)
+        beta0 = torch.empty((w, a.shape[0]), dtype=a.dtype, device=dev)
         _check_rc(lib, lib.k4_reverse(
-            a.data_ptr(), bt.data_ptr(), tokens.data_ptr(), _ptr(beta_exit),
-            None, None, beta0.data_ptr(), w, t_len, a.shape[0],
+            a_k.data_ptr(), bt.data_ptr(), tokens.data_ptr(), _ptr(beta_exit),
+            None, None, beta0.data_ptr(), w, t_len, a.shape[0], f64,
             torch.cuda.current_stream(dev).cuda_stream))
         posterior_fused.launches += 1
     return beta0

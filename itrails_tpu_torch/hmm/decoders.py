@@ -132,9 +132,10 @@ def viterbi_segmented(a, bfull, pi, tokens):
 def posterior_fast(a, bfull, pi, tokens):
     """Posterior state probabilities, (T, W, M), of a (W, T) token batch
     (itrails_tpu/hmm/decoders.py:147 posterior_fast).  On the card this is
-    kernel K4, which takes contiguous float32 tables and int32 tokens, and
-    the result is a view of its store; on the CPU it is K4's plain version
-    (``cuda_posterior.posterior_fused_plain``) in the tables' dtype.
+    kernel K4, which takes contiguous float32 or float64 tables and int32
+    tokens, and the result is a view of its store; on the CPU it is K4's
+    plain version (``cuda_posterior.posterior_fused_plain``) in the tables'
+    dtype.
 
     Padded steps are garbage: mask with ``tokens != PAD_TOKEN``.  The
     recursion is K4's, a scaled-linear forward and reverse sweep in which

@@ -18,8 +18,9 @@ __all__ = ["pack_windows", "plan_buckets"]
 
 # Blocks longer than this leave the length-class buckets: padding a bucket
 # to such a length would multiply the work of every short block in it.
-# The engine (optim/optimizer.py) evaluates each of them as a one-window
-# batch of its own.
+# The engine (optim/optimizer.py) evaluates each of them on its own: the
+# value on the transfer-operator path (hmm/longseq.py), the gradient as a
+# one-window batch.
 LONG_BLOCK_THRESHOLD = 262_144
 
 

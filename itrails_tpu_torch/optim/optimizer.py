@@ -5,9 +5,11 @@ L-BFGS-B over the free parameters; each objective evaluation rebuilds
 (a, b, pi) and sums the forward log-likelihood over all alignment blocks.
 Here the model rebuild runs in float64 on the engine's device.  A
 value-only evaluation is one launch of kernel K1 per length-class bucket
-on the card (its plain version on the CPU); an exact-gradient evaluation
-is one call of kernel K2 per bucket, whose gradient torch autograd carries
-back through the f64 build to the parameters.
+on the card (its plain version on the CPU), plus, for each block above the
+long-block threshold, the sequence-parallel transfer-operator path with
+kernel K5 (``hmm/longseq.py``); an exact-gradient evaluation is one call of
+kernel K2 per bucket and per long block, whose gradient torch autograd
+carries back through the f64 build to the parameters.
 
 Artifacts per evaluation match the reference: a row
 ``[n_eval, params..., loglik, seconds]`` appended to
@@ -30,7 +32,7 @@ from itrails_tpu_torch import resolve_device
 from itrails_tpu_torch.config import update_best_model
 from itrails_tpu_torch.core.model import build_model_fn
 from itrails_tpu_torch.data.tokens import N_TOKENS, aggregation_matrix
-from itrails_tpu_torch.hmm import decoders, windows
+from itrails_tpu_torch.hmm import decoders, longseq, windows
 from itrails_tpu_torch.hmm.grad import LoglikFn
 from itrails_tpu_torch.optim.cases import resolve_times
 
@@ -53,11 +55,19 @@ class LoglikEngine:
     Short blocks are grouped into power-of-two length-class buckets
     (windows.plan_buckets) so one chromosome-scale block never forces its
     padding on kilobase blocks.  A block above ``long_threshold`` columns
-    is its own one-window batch: the recurrence is exact, only slower than
-    a sequence-parallel evaluation would be.  Every block keeps its exact
-    recurrence (no splitting), so the total equals the single-batch
-    log-likelihood up to float summation order; the per-batch totals are
-    summed in f64."""
+    (``long_blocks``, 1-D token tensors) leaves the buckets:
+
+    - the value (:meth:`loglik`, what Nelder-Mead and scipy's
+      finite-difference methods call) takes it through the
+      sequence-parallel transfer operators of
+      ``longseq.forward_loglik_long``: K5 builds each chunk's operator on
+      the card, and the log-normalizer is carried in f64;
+    - the exact gradient (:meth:`loglik_and_grad_fn`) still takes it as a
+      one-window batch of kernel K2; its operator path is later work.
+
+    Both are exact (no splitting), so the total equals the single-batch
+    log-likelihood up to float rounding; the per-batch totals are summed in
+    f64."""
 
     def __init__(self, v_lst, n_int_AB, n_int_ABC, dtype="float64",
                  device="cuda", long_threshold=windows.LONG_BLOCK_THRESHOLD):
@@ -79,10 +89,12 @@ class LoglikEngine:
                 [v_lst[i] for i in idxs], pad_length_to=128)
             self.batches.append(torch.as_tensor(tokens, device=self.device))
         self.n_buckets = len(self.batches)
-        for i in long_idx:
+        for i in long_idx:  # one-window batches: the gradient's route
             self.batches.append(torch.as_tensor(
                 np.asarray(v_lst[i], np.int32)[None, :], device=self.device))
         self.n_long = len(long_idx)
+        # the value's route: the same tokens, as 1-D views
+        self.long_blocks = [tok[0] for tok in self.batches[self.n_buckets:]]
         self._builder = build_model_fn(n_int_AB, n_int_ABC, torch.float64,
                                        self.device)
         self._agg = torch.as_tensor(aggregation_matrix(), dtype=torch.float64,
@@ -112,8 +124,10 @@ class LoglikEngine:
         self._sync()
         t1 = time.perf_counter()
         total = torch.zeros((), dtype=torch.float64, device=self.device)
-        for tok in self.batches:
+        for tok in self.batches[:self.n_buckets]:
             total = total + decoders.forward_loglik_fast(a, bfull, pi, tok)
+        for tok in self.long_blocks:
+            total = total + longseq.forward_loglik_long(a, bfull, pi, tok)
         value = float(total)
         self.seconds["build"] += t1 - t0
         self.seconds["decode"] += time.perf_counter() - t1
@@ -128,8 +142,10 @@ class LoglikEngine:
         (the case algebra, plain arithmetic that carries tensors).  The
         build runs in f64 as an autograd graph from ``vec``; the decode's
         value and gradient in ``(a, bfull, pi)`` come from K2 per batch
-        (its plain version on the CPU) through :class:`LoglikFn`; autograd
-        then carries them back through the decode-dtype cast and the build.
+        (its plain version on the CPU) through :class:`LoglikFn`, a long
+        block still as a one-window K2 batch (not on the value's operator
+        path); autograd then carries them back through the decode-dtype
+        cast and the build.
         The reference has no gradient path: its L-BFGS-B uses finite
         differences."""
         def f(vec_np):

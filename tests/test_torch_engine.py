@@ -103,12 +103,15 @@ def test_engine_total_matches_jax_engine(n_ab, n_abc):
     np.testing.assert_allclose(mine.loglik(params), ref, rtol=1e-10)
 
 
-def test_long_block_runs_as_a_one_window_batch():
-    """Blocks above the threshold leave the buckets and still give the
-    exact total of the JAX engine (which evaluates them on its
-    transfer-operator path)."""
+def test_long_block_runs_on_the_operator_path(monkeypatch):
+    """A block above the threshold leaves the buckets: the value takes it
+    through the transfer operators (K5's plain version here) and launches
+    no one-window batch for it, and still gives the exact total of the JAX
+    engine (which evaluates it on its own operator path) and of the engine
+    with no long block."""
     from itrails_tpu.optim.optimizer import LoglikEngine as JaxEngine
     from itrails_tpu_torch.data.maf import maf_tokens
+    from itrails_tpu_torch.hmm import cuda_fwd, cuda_longseq
     from itrails_tpu_torch.optim.optimizer import LoglikEngine
 
     v_lst = maf_tokens(MAF, SPECIES)
@@ -117,12 +120,28 @@ def test_long_block_runs_as_a_one_window_batch():
     params = _resolved(1, 2)
     mine = LoglikEngine(v_lst, 1, 2, device="cpu", long_threshold=500)
     assert mine.n_long == 1 and len(mine.batches) == mine.n_buckets + 1
-    assert mine.batches[-1].shape == (1, 700)
+    assert mine.long_blocks[0].shape == (700,)
+    seen = {"forward": [], "operators": []}
+    forward, operators = cuda_fwd.forward_fused, cuda_longseq.chunk_operators_fused
+
+    def spy_forward(a, bfull, pi, tokens):
+        seen["forward"].append(tuple(tokens.shape))
+        return forward(a, bfull, pi, tokens)
+
+    def spy_operators(a, bfull, stream):
+        seen["operators"].append(tuple(stream.shape))
+        return operators(a, bfull, stream)
+
+    monkeypatch.setattr(cuda_fwd, "forward_fused", spy_forward)
+    monkeypatch.setattr(cuda_longseq, "chunk_operators_fused", spy_operators)
+    value = mine.loglik(params)
+    assert (1, 700) not in seen["forward"]
+    assert len(seen["forward"]) == mine.n_buckets
+    assert seen["operators"] == [(1, 1024)]
     ref = JaxEngine(v_lst, 1, 2, long_threshold=500).loglik(params)
-    np.testing.assert_allclose(mine.loglik(params), ref, rtol=1e-10)
+    np.testing.assert_allclose(value, ref, rtol=1e-10)
     whole = LoglikEngine(v_lst, 1, 2, device="cpu")
-    np.testing.assert_allclose(mine.loglik(params), whole.loglik(params),
-                               rtol=1e-12)
+    np.testing.assert_allclose(value, whole.loglik(params), rtol=1e-12)
 
 
 def test_engine_rejects_tokens_outside_the_alphabet():

@@ -43,6 +43,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import itrails_tpu_torch.hmm.cuda_viterbi\n"
         "import itrails_tpu_torch.cli.posterior\n"
         "import itrails_tpu_torch.hmm.cuda_posterior\n"
+        "import itrails_tpu_torch.hmm.longseq, itrails_tpu_torch.hmm.cuda_longseq\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'itrails_tpu', 'pandas'))\n"
         "print(','.join(bad))\n"

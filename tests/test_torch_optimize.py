@@ -139,6 +139,31 @@ def test_cli_runs_the_exact_gradient_path(tmp_path, method, flags,
     np.testing.assert_allclose(rows[:3, -2], ref[:3, -2], rtol=1e-8)
 
 
+def test_cli_no_grad_lbfgsb_matches_the_jax_cli(tmp_path):
+    """``--no-grad`` with ``settings.method: L-BFGS-B`` runs scipy's
+    finite-difference L-BFGS-B on the value path, and its first rows (the
+    start point, then the start point stepped in one coordinate at a time)
+    equal the JAX CLI's (parameters and loglik rtol 1e-8)."""
+    from itrails_tpu.cli.optimize import main as jax_main
+
+    cfg = tmp_path / "jax" / "config.yaml"
+    cfg.parent.mkdir()
+    with open(cfg, "w") as f:
+        yaml.dump(_config("L-BFGS-B"), f)
+    jax_main([str(cfg), "--output", str(tmp_path / "jax" / "run" / "t"),
+              "--no-grad", "--maxiter", "1"])
+    ref = _history(tmp_path / "jax" / "run")
+    rows = _history(_run(tmp_path, "--no-grad", "--maxiter", "1",
+                         method="L-BFGS-B"))
+    g = load_golden("traj_1x2.npz")
+    assert rows.shape[0] >= 3 and ref.shape[0] >= 3
+    np.testing.assert_allclose(rows[0, 1:-2], g["history_params"][0], rtol=1e-15)
+    steps = rows[1:3, 1:-2] != rows[0, 1:-2]
+    assert steps.sum(axis=1).tolist() == [1, 1]
+    np.testing.assert_allclose(rows[:3, 1:-2], ref[:3, 1:-2], rtol=1e-8)
+    np.testing.assert_allclose(rows[:3, -2], ref[:3, -2], rtol=1e-8)
+
+
 def _grad_optimizer(tmp_path, variables, x0, bounds, n_int_ABC, size, seed,
                     maxiter):
     from itrails_tpu_torch.optim.optimizer import optimizer

@@ -24,6 +24,14 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _decode_setup():
+    """The resolved decode setup of tests/test_workflows.py's 1x2 config."""
+    from itrails_tpu_torch.cli.common import prepare_decode_setup
+    from tests.test_workflows import _decode_config
+
+    return prepare_decode_setup(_decode_config())
+
+
 def _random_model(m, seed=0):
     """``(a, bfull, pi)`` in f64 numpy."""
     rng = np.random.default_rng(seed)
@@ -340,6 +348,56 @@ def test_k4_matches_plain_on_the_card(m, cuda_device):
     beta = cuda_posterior.beta_sweep(a32, b32, tok)
     beta_ref = cuda_posterior.beta_sweep_plain(a, bfull, tok)
     assert float((beta.double() - beta_ref).abs().max()) <= 2e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [27, 133, 160, 182, 224])
+def test_k4_in_f64_matches_plain_on_the_card(m, cuda_device):
+    """K4 on f64 tables runs in f64 (a read from global memory above
+    M = 160) and meets the f64 plain version at atol 1e-10."""
+    from itrails_tpu_torch.hmm import cuda_posterior
+
+    a, bfull, pi = (torch.tensor(x, device=cuda_device)
+                    for x in _random_model(m, seed=m))
+    tok = torch.tensor(_tokens(21, 301, seed=13), device=cuda_device)
+    launches = cuda_posterior.posterior_fused.launches
+    post, alpha = cuda_posterior.posterior_fused(a, bfull, pi, tok)
+    torch.cuda.synchronize()
+    assert cuda_posterior.posterior_fused.launches == launches + 2
+    assert post.dtype == torch.float64 and alpha.dtype == torch.float64
+    ref, al_ref = cuda_posterior.posterior_fused_plain(a, bfull, pi, tok)
+    real = (tok != -1).T[:, :, None]
+    assert float(torch.where(real, (post - ref).abs(), 0.0).max()) <= 1e-10
+    assert float((alpha - al_ref).abs().max()) <= 1e-10
+    beta = cuda_posterior.beta_sweep(a, bfull, tok)
+    beta_ref = cuda_posterior.beta_sweep_plain(a, bfull, tok)
+    assert float((beta - beta_ref).abs().max()) <= 1e-10
+
+
+@pytest.mark.parametrize("posterior", [True, False])
+def test_decode_build_keeps_the_precision_flag(posterior):
+    """``--precision`` sets the decode's dtype on the CPU for both decode
+    CLIs; on the card the posterior keeps it too (test below)."""
+    from itrails_tpu_torch.cli import decode
+
+    setup = _decode_setup()
+    for precision in ("float64", "float32"):
+        _, a, bfull, pi = decode.build(setup, precision, "cpu",
+                                       posterior=posterior)
+        assert a.dtype == bfull.dtype == pi.dtype == getattr(torch, precision)
+
+
+@pytest.mark.gpu
+def test_posterior_decode_on_the_card_keeps_f64(cuda_device):
+    """On the card the posterior decode takes ``--precision`` (default
+    float64); the Viterbi decode stays float32 (K3 takes float32 only)."""
+    from itrails_tpu_torch.cli import decode
+
+    setup = _decode_setup()
+    _, a, _, _ = decode.build(setup, "float64", cuda_device, posterior=True)
+    assert a.dtype == torch.float64
+    _, a, _, _ = decode.build(setup, "float64", cuda_device, posterior=False)
+    assert a.dtype == torch.float32
 
 
 @pytest.mark.gpu
