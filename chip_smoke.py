@@ -17,6 +17,7 @@ power limit):
    on the 3x3 model (M=27, 4096 x 8192 tokens) and the 7x7 model (M=133,
    1024 x 2048), built on the card, with ragged PAD tails and all-PAD
    windows; time, launches and the card's least time for the same work;
+   K1 in f32 and in f64 (per-window loglik at rtol 1e-10);
    then K3 against its f32 plain version on the card at the same shapes
    and on a batch with exact ties (two exchangeable states), paths equal
    exactly, with its peak pointer-table bytes; then K4 against its f64
@@ -30,19 +31,21 @@ power limit):
    arithmetic; then K5 against its plain version in f64 on the same f32
    tables, on the card, at M=27 and M=133, on the 313 chunks of 1,024
    columns of a 320 kb block simulated from each model, with PAD runs, an
-   all-PAD chunk and a PAD tail: operators at atol 1e-4 (1,024 f32
-   steps), log scales at rtol 1e-6 (and, no gate, the f32 rounding of the
-   tables' own part);
+   all-PAD chunk and a PAD tail: operators at atol 5e-5, log scales at
+   rtol 1e-6 (and, no gate, the f32 rounding of the tables' own part),
+   and K5 on the f64 tables against the plain version on them at 1e-10;
 3. the value-only path: ``itrails_tpu_torch.cli.optimize.main --no-grad``
    (Nelder-Mead) at 3x3 on a MAF simulated from the 3x3 model (1.32 M
-   columns: 100 blocks of 10 kb and one 320 kb block), with K1's and K5's
-   launch counters reset just before and read just after: K1 runs the
-   bucket and K5 the long block, which launches no K1; evaluation 0 held
-   against the f64 plain version; then ``--no-grad`` with
+   columns: 100 blocks of 10 kb and one 320 kb block), at its default
+   ``--precision float64`` (K1 and K5 in f64), with K1's and K5's launch
+   counters reset just before and read just after: K1 runs the bucket and
+   K5 the long block, which launches no K1; evaluation 0 held against the
+   f64 plain version at rtol 1e-10; then ``--no-grad`` with
    ``settings.method: L-BFGS-B`` (scipy's finite differences) on the card,
-   its first 3 evaluations against the same CLI with ``--device cpu`` (run
-   in a process of its own while the card runs phases 3 to 5, and checked
-   after phase 5);
+   its start point and its one step in each coordinate against the same
+   CLI with ``--device cpu`` (run in a process of its own while the card
+   runs phases 3 to 5, and checked after phase 5): the same points, and
+   every finite difference within 1e-6 nats of the CPU's;
 4. the main path, the CLI's default: exact-gradient L-BFGS-B on the same
    MAF, with K2's call counter reset just before and read just after (the
    long block a one-window K2 batch; no K1 or K5 launch),
@@ -77,9 +80,11 @@ power limit):
 10. the long-block value: phase 3's 320 kb block and a 1e7-column block
    simulated from the 3x3 model, and a 320 kb block simulated from the 7x7
    model, each through K5 and the operator product, K1 as a one-window
-   batch and (the 320 kb blocks) K2 as a one-window batch, every value
-   within rtol 1e-6 of the f64 plain operator path on the card, with each
-   route's milliseconds and the K5 route's peak device memory.
+   batch and (the 320 kb blocks) K2 as a one-window batch on f32 tables,
+   every value within rtol 1e-6 of the f64 plain operator path on the
+   card, and through K5 and the operator product on the f64 tables within
+   rtol 1e-10, with each route's milliseconds and the K5 route's peak
+   device memory.
 
 Any failure exits non-zero.  The last two lines are the kernels' JSON
 record and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -100,7 +105,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W power limit)
 PEAK_F32_FLOPS = 67e12  # outside the tensor cores
-PEAK_F64_FLOPS = 34e12  # outside the tensor cores
+PEAK_F64_FLOPS = 67e12  # on the FP64 tensor cores, full IEEE f64
 PEAK_BYTES = 3.35e12
 SPECIES = ["hg38", "panTro5", "gorGor5", "ponAbe2"]
 # mu-scaled start point of examples/example_config.yaml (t_1 case)
@@ -133,11 +138,19 @@ POST64_ATOL = 1e-10
 LONG_BLOCK = 320_000
 LONG_SIM = (1000, 10_000)
 # phase 2: K5 against its plain version in f64 on the same f32 tables:
-# operators (max entry 1) and log scales.  A chunk is a product of 1,024
-# f32 steps whose relative roundings add up where states persist:
-# 1,024 x 2^-24 = 6.1e-5 of the max entry; the plain version itself in f32
-# is 3.2e-5 to 3.8e-5 off its f64 run on such chunks at M = 27 and 133
-OPS_ATOL, LOGZ_RTOL = 1e-4, 1e-6
+# operators (max entry 1) and log scales, at the tolerance of the port's
+# CPU test against the Pallas operator kernel
+OPS_ATOL, LOGZ_RTOL = 5e-5, 1e-6
+# K1 and K5 on f64 tables (the optimize CLI's value path at its default,
+# --precision float64) against their plain versions in f64: the same
+# recursion in another summation order.  K1's per-window loglik relative
+# to max(|loglik|, 1), K5's operators absolute and log scales relative.
+VALUE64_RTOL = 1e-10
+# phase 3's finite differences: each difference f(x + h e_j) - f(x) of the
+# card's f64 value path against the CPU's, in nats.  A step moves a
+# 1.32 M-column loglik by ~1e-3 nats; f64 rounding of the ~2e6-nat total
+# is ~1e-10 nats, f32 rounding ~1e-2
+FD_ATOL = 1e-6
 # phase 10: each route's long-block value against the f64 plain one
 LONG_RTOL = 1e-6
 # phase 2: K4's f32 error as one state's runs grow: the recombination rates
@@ -222,17 +235,19 @@ def build_tables(n_ab, n_abc, dev, d=None):
     return a, decoders.emission_table(b, aggregation_matrix()), pi, b
 
 
-def k1_bound_ms(m, tokens):
+def k1_bound_ms(m, tokens, size=4):
     """Least time of K1's work on these inputs: the larger of its bytes
     (each input read once, each output written once) over the memory rate
-    and its f32 operations over the f32 peak.  Work is counted for the
-    non-PAD columns 1..T-1, the ones the recurrence updates: 2*M^2 for the
-    product plus 3*M for the emission product, the sum and the division."""
+    and its operations over the peak for their type (``size`` 4: f32, 8:
+    f64).  Work is counted for the non-PAD columns 1..T-1, the ones the
+    recurrence updates: 2*M^2 for the product plus 3*M for the emission
+    product, the sum and the division.  Bytes: the tables, the tokens, the
+    column-0 alpha in and the final alpha out, the loglik out in f64."""
     w, t = tokens.shape
     steps = int((tokens[:, 1:] >= 0).sum())
     ops = steps * (2 * m * m + 3 * m)
-    nbytes = 4 * (m * m + 625 * m + m + w * t + w * m + w)
-    by_ops = ops / PEAK_F32_FLOPS
+    nbytes = size * (m * m + 625 * m + m + 2 * w * m) + 4 * w * t + 8 * w
+    by_ops = ops / (PEAK_F32_FLOPS if size == 4 else PEAK_F64_FLOPS)
     by_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes
                                          else "bytes")
@@ -291,16 +306,17 @@ def k4_bound_ms(m, tokens, size=4):
                                          else "bytes")
 
 
-def k5_bound_ms(m, tokens):
+def k5_bound_ms(m, tokens, size=4):
     """Least time of K5's function on these inputs: per non-PAD column the
-    product G @ a (2*M^3) and the emission scale and normalization (2*M^2);
-    bytes: 4 a column of tokens in, and each chunk's operator and log
-    scale out (4*M^2 + 8)."""
+    product G @ a (2*M^3) and the emission scale and normalization (2*M^2),
+    at the peak for their type (``size`` 4: f32, 8: f64); bytes: 4 a column
+    of tokens in, and each chunk's operator and log scale out
+    (``size``*M^2 + 8)."""
     c, length = tokens.shape
     steps = int((tokens >= 0).sum())
     ops = steps * (2 * m ** 3 + 2 * m * m)
-    nbytes = 4 * c * length + c * (4 * m * m + 8)
-    by_ops = ops / PEAK_F32_FLOPS
+    nbytes = 4 * c * length + c * (size * m * m + 8)
+    by_ops = ops / (PEAK_F32_FLOPS if size == 4 else PEAK_F64_FLOPS)
     by_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes
                                          else "bytes")
@@ -375,7 +391,8 @@ def phase_build(card):
 
 
 def phase_k1(card, dev, m_label, n_ab, n_abc, w, t, seed, reps):
-    """K1 against its plain version on the card; returns its record."""
+    """K1 against its plain version on the card, in f32 and in f64; returns
+    the f64 record (the optimize CLI's value path at its default)."""
     import torch
 
     from itrails_tpu_torch.hmm import cuda_fwd
@@ -408,6 +425,19 @@ def phase_k1(card, dev, m_label, n_ab, n_abc, w, t, seed, reps):
     launches = cuda_fwd.forward_fused.launches - before + 1
     plain_ms = cuda_ms(lambda: cuda_fwd.forward_fused_plain(a, bfull, pi, tok), 1)
     bound_ms, bound_by = k1_bound_ms(m, tok)
+    a, bfull, pi = (x.contiguous() for x in (a, bfull, pi))
+    al64, ll64k = cuda_fwd.forward_fused(a, bfull, pi, tok)
+    torch.cuda.synchronize()
+    abs64 = (ll64k - ll_ref).abs()
+    rel64 = float((abs64 / ll_ref.abs().clamp(min=1.0)).max())
+    alpha64_err = float((al64 - al_ref).abs().max())
+    check(al64.dtype == torch.float64 and bool(torch.isfinite(ll64k).all()),
+          f"K1 {m_label} f64: non-finite or f32 output")
+    check(rel64 <= VALUE64_RTOL and alpha64_err <= VALUE64_RTOL,
+          f"K1 {m_label} f64: per-window loglik off by {rel64:.3g}, alpha by "
+          f"{alpha64_err:.3g} (rtol {VALUE64_RTOL:g})")
+    ms64 = cuda_ms(lambda: cuda_fwd.forward_fused(a, bfull, pi, tok), reps)
+    bound64_ms, bound64_by = k1_bound_ms(m, tok, size=8)
     print(f"{card} | phase 2 K1 {m_label} M={m} W={w} T={t}: per-window ll "
           f"max rel err {rel:.3g} (rtol 1e-5: f32 normalizers summed over T "
           f"steps), total rel err {total_rel:.3g} (rtol 1e-6: f64 sum of f32 "
@@ -415,8 +445,15 @@ def phase_k1(card, dev, m_label, n_ab, n_abc, w, t, seed, reps):
           f"(mean of {reps}, {launches} launches), "
           f"plain f64 {plain_ms:.1f} ms (no yardstick), bound {bound_ms:.4f} "
           f"ms ({bound_by}), {bound_ms / ms:.1%} of bound")
-    return {"max_abs_err": float(abs_err.max()), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"{card} | phase 2 K1 {m_label} M={m} W={w} T={t} f64: per-window "
+          f"ll max rel err {rel64:.3g}, alpha max abs err {alpha64_err:.3g} "
+          f"(gate {VALUE64_RTOL:g}, vs the plain f64 version); K1 f64 "
+          f"{ms64:.4f} ms (mean of {reps}), {ms64 / ms:.2f}x f32, f64 bound "
+          f"{bound64_ms:.4f} ms ({bound64_by}), {bound64_ms / ms64:.1%} of "
+          f"bound")
+    return {"max_abs_err": float(abs64.max()), "ms": ms64,
+            "plain_ms": plain_ms, "bound_ms": bound64_ms,
+            "bound_by": bound64_by}
 
 
 def phase_k2(card, dev, m_label, n_ab, n_abc, w, t, seed, reps, k1_ms):
@@ -636,7 +673,7 @@ def phase_k4(card, dev, m_label, n_ab, n_abc, w, t, seed, reps):
           f"{POST64_ATOL:g}, vs the plain f64 version), final alpha "
           f"{alpha64_err:.3g}; K4 f64 {ms64:.4f} ms (mean of {reps}), "
           f"{ms64 / ms:.2f}x f32, f64 bound {bound64_ms:.4f} ms "
-          f"({bound64_by}, 34 TFLOP/s), {bound64_ms / ms64:.1%} of bound")
+          f"({bound64_by}, 67 TFLOP/s), {bound64_ms / ms64:.1%} of bound")
     return {"max_abs_err": err64, "ms": ms64, "plain_ms": plain_ms,
             "bound_ms": bound64_ms, "bound_by": bound64_by}
 
@@ -690,8 +727,10 @@ def phase_k4_run_lengths(card, dev):
 
 def phase_k5(card, dev, m_label, n_ab, n_abc, seed, reps):
     """K5 against its plain version in f64 on the same (f32) tables, on the
-    card, on the chunks of a 320 kb block simulated from the model; returns
-    its record.  The plain version on the f64 tables is read too, without a
+    card, on the chunks of a 320 kb block simulated from the model, and K5
+    on the f64 tables against the plain version on them; returns the f64
+    record (the optimize CLI's value path at its default).  The plain
+    version on the f64 tables against the f32 ones is read too, without a
     gate: over 1,024 columns of a model whose states persist, the f32
     rounding of the tables alone moves the operators by ~5e-5."""
     import torch
@@ -717,11 +756,23 @@ def phase_k5(card, dev, m_label, n_ab, n_abc, seed, reps):
         a32.double(), b32.double(), tok.reshape(-1), chunk)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
+    a, bfull = a.contiguous(), bfull.contiguous()
     ops64, logz64 = cuda_longseq.chunk_operators(a, bfull, tok.reshape(-1), chunk)
     tables_ops = float((ops_ref - ops64).abs().max())
     tables_logz = float(((logz_ref - logz64).abs()
                          / logz64.abs().clamp(min=1.0)).max())
-    del ops64, logz64
+    ops64k, logz64k = cuda_longseq.chunk_operators_fused(a, bfull, tok)
+    torch.cuda.synchronize()
+    check(ops64k.dtype == torch.float64 and bool(torch.isfinite(ops64k).all()),
+          f"K5 {m_label} f64: non-finite or f32 operators")
+    ops64_err = float((ops64k - ops64).abs().max())
+    logz64_err = float(((logz64k - logz64).abs()
+                        / logz64.abs().clamp(min=1.0)).max())
+    del ops64, logz64, ops64k
+    check(ops64_err <= VALUE64_RTOL and logz64_err <= VALUE64_RTOL,
+          f"K5 {m_label} f64: operators off the plain version by "
+          f"{ops64_err:.3g}, log scales by {logz64_err:.3g} (gate "
+          f"{VALUE64_RTOL:g})")
     check(tuple(ops.shape) == (n_chunks, m, m) and ops.dtype == torch.float32
           and logz.dtype == torch.float64, f"K5 {m_label}: misshapen output")
     check(bool(torch.isfinite(ops).all() and torch.isfinite(logz).all()),
@@ -742,6 +793,9 @@ def phase_k5(card, dev, m_label, n_ab, n_abc, seed, reps):
     check(launches == reps + 1, f"K5 {m_label}: timed calls did not all launch "
                                 "the kernel")
     bound_ms, bound_by = k5_bound_ms(m, tok)
+    ms64 = cuda_ms(lambda: cuda_longseq.chunk_operators_fused(a, bfull, tok),
+                   reps)
+    bound64_ms, bound64_by = k5_bound_ms(m, tok, size=8)
     print(f"{card} | phase 2 K5 {m_label} M={m} C={n_chunks} L={chunk}: "
           f"operators max abs err {ops_err:.3g} (atol {OPS_ATOL:g}), log "
           f"scales max rel err {logz_err:.3g} (rtol {LOGZ_RTOL:g}; |logz| up "
@@ -753,14 +807,21 @@ def phase_k5(card, dev, m_label, n_ab, n_abc, seed, reps):
           f"of {reps}, {launches} launches), plain f64 {plain_ms:.1f} ms (one "
           f"call, host clock, no yardstick), bound {bound_ms:.4f} ms "
           f"({bound_by}), {bound_ms / ms:.1%} of bound")
-    return {"max_abs_err": ops_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"{card} | phase 2 K5 {m_label} M={m} C={n_chunks} L={chunk} f64: "
+          f"operators max abs err {ops64_err:.3g}, log scales max rel err "
+          f"{logz64_err:.3g} (gate {VALUE64_RTOL:g}, vs the plain version on "
+          f"the same f64 tables); K5 f64 {ms64:.4f} ms (mean of {reps}), "
+          f"{ms64 / ms:.2f}x f32, f64 bound {bound64_ms:.4f} ms "
+          f"({bound64_by}), {bound64_ms / ms64:.1%} of bound")
+    return {"max_abs_err": ops64_err, "ms": ms64, "plain_ms": plain_ms,
+            "bound_ms": bound64_ms, "bound_by": bound64_by}
 
 
 def phase_cli(card, dev, workdir):
-    """The value-only path: the optimize CLI, Nelder-Mead, at 3x3.  Returns
-    its launches of K1 and K5 and what later phases reuse; starts the CPU
-    run of :func:`phase_cli_fd` in a process of its own."""
+    """The value-only path: the optimize CLI, Nelder-Mead, at 3x3, at its
+    default precision (K1 and K5 in f64).  Returns its launches of K1 and
+    K5 and what later phases reuse; starts the CPU run of
+    :func:`phase_cli_fd` in a process of its own."""
     import torch
     import yaml
 
@@ -842,30 +903,37 @@ def phase_cli(card, dev, workdir):
     a0, bfull0, pi0 = (x.contiguous() for x in (a0, bfull0, pi0))
     a32, b32, p32 = (x.float().contiguous() for x in (a0, bfull0, pi0))
     ref = 0.0
-    per_batch = []  # K1 ms at each bucket's shape, the K5 route's on the block
+    per_batch = []  # each route's ms in f64 (the CLI's) and in f32
     for i_blocks in buckets:
         tok, _, _ = windows.pack_windows([v_lst[i] for i in i_blocks],
                                          pad_length_to=128)
         tok = torch.as_tensor(tok, device=dev)
         _, ll_ref = cuda_fwd.forward_fused_plain(a0, bfull0, pi0, tok)
         ref += float(ll_ref.sum())
-        ms = cuda_ms(lambda: cuda_fwd.forward_fused(a32, b32, p32, tok), 1)
-        per_batch.append(f"K1 {tuple(tok.shape)} {ms:.2f} ms")
+        ms = cuda_ms(lambda: cuda_fwd.forward_fused(a0, bfull0, pi0, tok), 1)
+        ms32 = cuda_ms(lambda: cuda_fwd.forward_fused(a32, b32, p32, tok), 1)
+        per_batch.append(f"K1 {tuple(tok.shape)} {ms:.2f} ms (f32 "
+                         f"{ms32:.2f} ms)")
     for i in long_idx:
         tok = torch.as_tensor(v_lst[i], device=dev)
         ref += float(longseq.forward_loglik_long_plain(a0, bfull0, pi0, tok))
-        ms = cuda_ms(lambda: longseq.forward_loglik_long(a32, b32, p32, tok), 3)
+        ms = cuda_ms(lambda: longseq.forward_loglik_long(a0, bfull0, pi0, tok),
+                     3)
+        ms32 = cuda_ms(lambda: longseq.forward_loglik_long(a32, b32, p32, tok),
+                       3)
         per_batch.append(f"K5 + operator product, the {len(tok)}-column "
-                         f"block, {ms:.2f} ms")
+                         f"block, {ms:.2f} ms (f32 {ms32:.2f} ms)")
     rel = abs(rows[0, -2] - ref) / abs(ref)
-    check(rel <= 1e-6, f"first evaluation off the f64 reference by {rel:.3g}")
+    check(rel <= VALUE64_RTOL, f"first evaluation off the f64 reference by "
+                               f"{rel:.3g} (rtol {VALUE64_RTOL:g})")
     print(f"{card} | phase 3 optimize CLI 3x3 Nelder-Mead: {sum(lengths)} "
           f"columns in {len(lengths)} blocks ({len(buckets)} bucket(s) + "
           f"{len(long_idx)} long block), {n_eval} evaluations in {cli_s:.2f} s "
           f"({cli_s / n_eval:.3f} s/eval), K1 launches {launches} = "
           f"{n_eval} x {len(buckets)}, K5 launches {k5_launches} = {n_eval} x "
           f"{len(long_idx)}, best loglik {best_ll:.6f}, eval 0 vs plain "
-          f"f64 rel err {rel:.3g} (rtol 1e-6); per evaluation: "
+          f"f64 rel err {rel:.3g} (rtol {VALUE64_RTOL:g}); per evaluation, "
+          f"f64 (the CLI's default) and f32: "
           f"{', '.join(per_batch)}; simulation + MAF {prep_s:.1f} s")
     return launches, k5_launches, {
         "config": config, "v_lst": v_lst,
@@ -898,9 +966,11 @@ def start_cli_fd_cpu(workdir, config):
 
 
 def phase_cli_fd(card, dev, workdir, cli):
-    """``--no-grad`` with ``settings.method: L-BFGS-B`` on the card: its
-    first 3 evaluations (the start point, then the start point stepped in
-    one coordinate at a time) against the same CLI on the CPU in f64."""
+    """``--no-grad`` with ``settings.method: L-BFGS-B`` on the card, at its
+    default precision (the value path in f64): its first evaluations (the
+    start point, then the start point stepped in one coordinate at a time)
+    against the same CLI on the CPU in f64.  Each finite difference is held
+    to FD_ATOL nats of the CPU's."""
     import torch
 
     from itrails_tpu_torch.cli.optimize import main
@@ -927,32 +997,41 @@ def phase_cli_fd(card, dev, workdir, cli):
                       skiprows=1, ndmin=2)
     ref = np.loadtxt(fd["out"] + ".optimization_history.csv", delimiter=",",
                      skiprows=1, ndmin=2)
-    n_eval = rows.shape[0]
-    check(n_eval >= 3 and ref.shape[0] >= 3, "finite-difference history too short")
+    with open(out + ".optimization_history.csv") as f:
+        names = f.readline().strip().split(",")[1:-2]
+    n_eval, n_fd = rows.shape[0], len(names) + 1  # x0 and one step a coordinate
+    check(n_eval >= n_fd and ref.shape[0] >= n_fd,
+          "finite-difference history too short")
     check(k1 == n_eval * (cli["per_eval"] - 1) and k5 == n_eval,
           f"finite-difference run: K1 launches {k1}, K5 launches {k5} for "
           f"{n_eval} evaluations")
-    check(np.array_equal(rows[:3, 1:-2], ref[:3, 1:-2]),
-          "the card's first 3 evaluation points differ from the CPU's")
-    rel = np.abs(rows[:3, -2] - ref[:3, -2]) / np.abs(ref[:3, -2])
-    check(bool((rel <= 1e-6).all()),
-          f"the card's first 3 logliks off the CPU f64 ones by {rel}")
-    with open(out + ".optimization_history.csv") as f:
-        names = f.readline().strip().split(",")[1:-2]
-    slopes = []  # the finite differences of rows 1 and 2 against row 0
-    for k in (1, 2):
-        j = int(np.flatnonzero(rows[k, 1:-2] != rows[0, 1:-2])[0])
+    check(np.array_equal(rows[:n_fd, 1:-2], ref[:n_fd, 1:-2]),
+          f"the card's first {n_fd} evaluation points differ from the CPU's")
+    rel = np.abs(rows[:n_fd, -2] - ref[:n_fd, -2]) / np.abs(ref[:n_fd, -2])
+    check(bool((rel <= VALUE64_RTOL).all()),
+          f"the card's first {n_fd} logliks off the CPU f64 ones by {rel}")
+    diffs, worst = [], 0.0
+    for k in range(1, n_fd):  # the finite differences of rows 1.. against row 0
+        moved = np.flatnonzero(rows[k, 1:-2] != rows[0, 1:-2])
+        check(moved.size == 1, f"evaluation {k} is not one coordinate's step")
+        j = int(moved[0])
         h = rows[k, 1 + j] - rows[0, 1 + j]
-        slopes.append(f"d/d{names[j]} card {(rows[k, -2] - rows[0, -2]) / h:.6g}"
-                      f" vs CPU {(ref[k, -2] - ref[0, -2]) / h:.6g} (step "
-                      f"{h:.3g})")
+        d_card, d_cpu = rows[k, -2] - rows[0, -2], ref[k, -2] - ref[0, -2]
+        worst = max(worst, abs(d_card - d_cpu))
+        diffs.append(f"{names[j]}: step {h:.3g}, difference card {d_card:.6g} "
+                     f"vs CPU {d_cpu:.6g} nats, slope card "
+                     f"{d_card / h:.8g} vs CPU {d_cpu / h:.8g}")
+    check(worst <= FD_ATOL,
+          f"the card's finite differences off the CPU's by up to {worst:.3g} "
+          f"nats (atol {FD_ATOL:g}): {'; '.join(diffs)}")
     print(f"{card} | phase 3 optimize CLI 3x3 --no-grad L-BFGS-B (finite "
-          f"differences), --maxiter 1: {n_eval} evaluations on the card in "
-          f"{card_s:.2f} s (K1 launches {k1}, K5 launches {k5}); the CPU run "
-          f"(f64, started with phase 3) waited {wait_s:.1f} s after, "
-          f"{ref.shape[0]} evaluations; first 3 evaluation points equal, "
-          f"logliks rel err {', '.join(f'{x:.3g}' for x in rel)} (rtol 1e-6); "
-          f"finite-difference slopes: {'; '.join(slopes)}")
+          f"differences, f64 value path), --maxiter 1: {n_eval} evaluations "
+          f"on the card in {card_s:.2f} s (K1 launches {k1}, K5 launches "
+          f"{k5}); the CPU run (f64, started with phase 3) waited "
+          f"{wait_s:.1f} s after, {ref.shape[0]} evaluations; first {n_fd} "
+          f"evaluation points equal, logliks rel err up to {rel.max():.3g} "
+          f"(rtol {VALUE64_RTOL:g}); finite differences within {worst:.3g} "
+          f"nats of the CPU's (atol {FD_ATOL:g}): {'; '.join(diffs)}")
 
 
 def phase_cli_grad(card, dev, workdir, cli):
@@ -1539,9 +1618,10 @@ def timed(fn):
 
 def phase_long_value(card, dev, cli):
     """The long-block value through its three routes (K5 and the operator
-    product, K1 and K2 as one-window batches) against the f64 plain
-    operator path, on phase 3's 320 kb block and a 1e7-column block at 3x3
-    and a 320 kb block at 7x7."""
+    product, K1 and K2 as one-window batches) on f32 tables, and the K5
+    route on the f64 tables (the optimize CLI's default), against the f64
+    plain operator path, on phase 3's 320 kb block and a 1e7-column block
+    at 3x3 and a 320 kb block at 7x7."""
     import torch
 
     from itrails_tpu_torch.data.simulate import simulate_token_batch
@@ -1574,6 +1654,8 @@ def phase_long_value(card, dev, cli):
         routes["K5 + product"] = timed(
             lambda: longseq.forward_loglik_long(*tables32, tok))
         peak = torch.cuda.max_memory_allocated(dev) - base
+        routes["K5 + product f64"] = timed(
+            lambda: longseq.forward_loglik_long(*tables, tok))
         routes["K1 one window"] = timed(
             lambda: cuda_fwd.forward_loglik_fused(*tables32, tok[None]))
         if len(tok) == LONG_BLOCK:
@@ -1584,21 +1666,23 @@ def phase_long_value(card, dev, cli):
             check(value.dtype == torch.float64, f"{label}: {name}'s value is "
                                                 f"{value.dtype}")
             errs[name] = float(value) - ref
-            check(abs(errs[name]) <= LONG_RTOL * abs(ref),
+            rtol = VALUE64_RTOL if name.endswith("f64") else LONG_RTOL
+            check(abs(errs[name]) <= rtol * abs(ref),
                   f"{label}: {name} off the f64 plain value by "
-                  f"{errs[name]:.4g} nats (rtol {LONG_RTOL:g})")
+                  f"{errs[name]:.4g} nats (rtol {rtol:g})")
         parts.append(
             f"{label} (M={m}, {len(tok)} columns): f64 plain operator path "
             f"{ref:.6f} nats ({plain_ms:.1f} ms; one f32 ulp there is "
             f"{float(np.spacing(np.float32(abs(ref)))):g} nats); "
             + ", ".join(f"{name} {ms:.3f} ms, error {errs[name]:+.4g} nats"
                         for name, (_, ms) in routes.items())
-            + f"; K5 route peak device memory {peak} bytes")
+            + f"; K5 route (f32) peak device memory {peak} bytes")
         if len(tok) == LONG_BLOCK:
             breakeven.append(f"M={m} K1 one window / K5 route "
                              f"{routes['K1 one window'][1] / routes['K5 + product'][1]:.1f}x")
-    print(f"{card} | phase 10 long-block value, three routes against the f64 "
-          f"plain operator path on the card (rtol {LONG_RTOL:g}): "
+    print(f"{card} | phase 10 long-block value, three routes on f32 tables "
+          f"and the K5 route on f64 ones against the f64 plain operator path "
+          f"on the card (rtol {LONG_RTOL:g}, f64 {VALUE64_RTOL:g}): "
           + "; ".join(parts) + "; " + ", ".join(breakeven))
 
 
@@ -1657,8 +1741,8 @@ def run_phases(card, dev, t_start):
         phase_long_value(card, dev, cli)
     print(f"{card} | all phases passed in {time.perf_counter() - t_start:.1f} s")
 
-    # each record at the genome-scale 3x3 shape of phase 2 (K4 in f64, the
-    # posterior CLI's default; K5 on the 313 chunks of a 320 kb block);
+    # each record at the genome-scale 3x3 shape of phase 2 (K1, K4 and K5
+    # in f64, the CLIs' default; K5 on the 313 chunks of a 320 kb block);
     # launches from the CLI run of its own path (K1 and K5: phase 3, K2:
     # phase 4, where each K2 call launches its two kernels, K3: phase 6, two
     # kernels a call, K4: phase 8, two kernels a call)

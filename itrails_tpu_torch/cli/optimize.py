@@ -13,6 +13,12 @@ A block above 262,144 columns takes the route of its method: under
 ``--no-grad`` (Nelder-Mead, or scipy's finite-difference L-BFGS-B with
 ``settings.method: L-BFGS-B``) the value path's transfer operators (kernel
 K5, ``hmm/longseq.py``); under exact gradients a one-window K2 batch.
+
+``--precision`` (default float64, as in ``itrails-tpu-optimize``) is the
+dtype of the value path, K1 and K5, on the card as on the CPU.  Finite
+differences need float64: at scipy's step of 1e-8 a genome-scale loglik
+moves by ~1e-3 nats, below the rounding of an f32 recursion.  The exact
+gradient's K2 computes in float32 on the card whatever the flag says.
 """
 
 from __future__ import annotations
@@ -49,9 +55,11 @@ def main(argv=None):
                              "settings.maxiter config key; default 10000).")
     parser.add_argument("--precision", choices=["float32", "float64"],
                         default="float64",
-                        help="Dtype of the decode with --device cpu. On "
-                             "the card K1 and K2 always compute in float32 "
-                             "and this flag has no effect.")
+                        help="Dtype of the value's decode (K1 and K5 on "
+                             "the card: Nelder-Mead and finite-difference "
+                             "methods) and of every decode with --device "
+                             "cpu.  On the card the exact gradient's K2 "
+                             "computes in float32 whatever this says.")
     parser.add_argument("--grad", action="store_true",
                         help="Force the exact-gradient path (L-BFGS-B on "
                              "the gradient of the decode, kernel K2, "

@@ -9,9 +9,10 @@
 //   ll_w   += log(sum((a^T alpha_{t-1}) * bfull[:, tok_t])),
 //
 // where a PAD token (-1) leaves alpha and ll unchanged.  Outputs: the
-// normalized final alpha (W, M) in f32 and the per-window loglik (W,) in
-// f64, the value ll - comp of the kernel's f32 Kahan pair, so a long
-// window's loglik keeps the compensation (at ~1e8 nats one f32 ulp is 8).
+// normalized final alpha (W, M) in the tables' scalar (float or double)
+// and the per-window loglik (W,) in f64, the value ll - comp of the
+// kernel's Kahan pair, so a long window's loglik keeps the compensation
+// (at ~1e8 nats one f32 ulp is 8).
 //
 // What bounds it on an H100: the product a^T alpha costs 2*M^2 flops per
 // column against 4 bytes of token traffic, so the kernel is bound by f32
@@ -41,12 +42,17 @@
 //   an f32 Kahan sum, so its rounding does not grow with T, and it leaves
 //   the kernel as the f64 value of the sum minus its compensation.
 //
-// The helpers below are templated on the scalar R.  K1 and K2 instantiate
-// float only; K4 (csrc/posterior.cu) also instantiates double, and K5
-// (csrc/operators.cu) reuses Mat and load_emission.  With G = true, Mat
-// reads a from a zero-padded (32S, 32S + 1) copy in global memory (L2)
-// instead of shared memory, for the sizes where shared memory cannot hold
-// it beside a kernel's other rows.
+// The helpers below are templated on the scalar R.  K1 instantiates float
+// and double (the optimize CLI's value path at --precision float64, which
+// finite-difference methods need: their step moves the loglik by less than
+// the f32 recursion's rounding); K2 instantiates float only; K4
+// (csrc/posterior.cu) float and double; K5 (csrc/operators.cu) reuses Mat
+// and load_emission.  With G = true, Mat reads a from a zero-padded
+// (32S, 32S + 1) copy in global memory (L2) instead of shared memory, for
+// the sizes where shared memory cannot hold it beside a kernel's other
+// rows: K1 and K4 in double above S = 5 (a_in_global).  In double the
+// bound is f64 issue, 67 TFLOP/s on the H100's FP64 tensor cores (NVIDIA
+// data sheet, SXM); this kernel's FMAs run outside them, at half that.
 //
 // Kernel K2 (csrc/grad.cu) includes this file: its forward launch is
 // forward_kernel with TC > 0, which also writes alpha at every chunk entry
@@ -350,6 +356,16 @@ size_t forward_smem() {
          sizeof(R);
 }
 
+// Whether the forward kernel on scalar R (K1, K4) reads a from a padded
+// copy in global memory (L2): in double above S = 5 the (32S, 32S + 1)
+// copy no longer fits the 227 KB of shared memory a block may use beside
+// the warps' rows (S = 5: 206 KB of a and 10 KB of rows; S = 6: 296 KB of
+// a).
+template <int S, typename R>
+constexpr bool a_in_global() {
+  return sizeof(R) == 8 && S > 5;
+}
+
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -357,17 +373,19 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <int S>
-int launch_k1(const float* a, const float* bt, const float* al0,
-              const float* ll0, const int* tokens, float* alpha_out,
-              double* ll_out, int W, int T, int M, cudaStream_t stream) {
-  const size_t smem = forward_smem<S>();
-  const cudaError_t err =
-      allow_smem(forward_kernel<S, 0, float, false>, smem);
+template <int S, typename R>
+int launch_k1(const void* a, const void* bt, const void* al0, const void* ll0,
+              const int* tokens, void* alpha_out, double* ll_out, int W,
+              int T, int M, cudaStream_t stream) {
+  constexpr bool G = a_in_global<S, R>();
+  const size_t smem = forward_smem<S, R, G>();
+  const cudaError_t err = allow_smem(forward_kernel<S, 0, R, G>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((W + kFwdWarps - 1) / kFwdWarps);
-  forward_kernel<S, 0, float, false><<<grid, kFwdWarps * 32, smem, stream>>>(
-      a, bt, al0, ll0, tokens, alpha_out, ll_out, nullptr, W, T, M);
+  forward_kernel<S, 0, R, G><<<grid, kFwdWarps * 32, smem, stream>>>(
+      static_cast<const R*>(a), static_cast<const R*>(bt),
+      static_cast<const R*>(al0), static_cast<const R*>(ll0), tokens,
+      static_cast<R*>(alpha_out), ll_out, nullptr, W, T, M);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -395,15 +413,28 @@ int k1_table_width(int M) { return 32 * ((M + 31) / 32); }
 
 int k1_max_states() { return 32 * kMaxS; }
 
-int k1_forward(const float* a, const float* bt, const float* al0,
-               const float* ll0, const int* tokens, float* alpha_out,
-               double* ll_out, int W, int T, int M, void* stream) {
+// Row stride of the zero-padded (32S, 32S + 1) copy of a that K1 and K4
+// read from global memory at M states in double (f64 != 0) or float, or 0
+// where they take a as the plain (M, M) matrix.
+int k1_a_stride(int M, int f64) {
+  const int S = (M + 31) / 32;
+  return f64 != 0 && S > 5 ? 32 * S + 1 : 0;
+}
+
+// Every float argument is double where f64 != 0; ll_out is double always.
+int k1_forward(const void* a, const void* bt, const void* al0,
+               const void* ll0, const int* tokens, void* alpha_out,
+               double* ll_out, int W, int T, int M, int f64, void* stream) {
   if (W < 1 || T < 1 || M < 1 || M > 32 * kMaxS)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch_s(M, [&](auto sc) {
-    return launch_k1<decltype(sc)::value>(a, bt, al0, ll0, tokens, alpha_out,
-                                          ll_out, W, T, M, s);
+    constexpr int S = decltype(sc)::value;
+    return f64 != 0
+               ? launch_k1<S, double>(a, bt, al0, ll0, tokens, alpha_out,
+                                      ll_out, W, T, M, s)
+               : launch_k1<S, float>(a, bt, al0, ll0, tokens, alpha_out,
+                                     ll_out, W, T, M, s);
   });
 }
 

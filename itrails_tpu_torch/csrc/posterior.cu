@@ -53,10 +53,10 @@
 //   sits in shared memory up to M = 160 (S = 5: 206 KB of a and 10 KB of
 //   rows); above that its (32S, 32S + 1) copy (296 KB at S = 6) does not
 //   fit the 227 KB a block may use, and the kernels read a zero-padded
-//   copy in global memory that stays in L2 (k4_global_a).  The store's
-//   rows are 8 bytes a state in double; the callers' byte budget counts
-//   them so.  In double the bound is f64 issue, 34 TFLOP/s outside the
-//   tensor cores (NVIDIA data sheet, H100 SXM).
+//   copy in global memory that stays in L2 (a_in_global, csrc/fwd.cu).
+//   The store's rows are 8 bytes a state in double; the callers' byte
+//   budget counts them so.  In double the bound is f64 issue, 67 TFLOP/s
+//   on the FP64 tensor cores (NVIDIA data sheet, H100 SXM).
 //
 // Launch contract: the C entry points enqueue on the given stream, do not
 // synchronize, allocate nothing, and return cudaGetLastError().
@@ -64,15 +64,6 @@
 #include "fwd.cu"  // K1: forward_kernel, Mat, load_emission and the helpers
 
 namespace {
-
-// Whether K4 on scalar R reads a from a padded copy in global memory (L2):
-// in double above S = 5 the (32S, 32S + 1) copy no longer fits the 227 KB
-// of shared memory a block may use beside the warps' rows (S = 5: 206 KB
-// of a and 10 KB of rows; S = 6: 296 KB of a).
-template <int S, typename R>
-constexpr bool k4_global_a() {
-  return sizeof(R) == 8 && S > 5;
-}
 
 // The reverse sweep over columns T-1..0 of every window: gamma over the
 // alpha store (unless it is null) and beta at column 0 (unless
@@ -189,7 +180,7 @@ template <int S, typename R>
 int launch_forward(const void* a, const void* bt, const void* al0,
                    const int* tokens, void* store, void* alpha_fin, int W,
                    int T, int M, cudaStream_t stream) {
-  constexpr bool G = k4_global_a<S, R>();
+  constexpr bool G = a_in_global<S, R>();
   const size_t smem = forward_smem<S, R, G>();
   const cudaError_t err = allow_smem(forward_kernel<S, 1, R, G>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -206,7 +197,7 @@ int launch_reverse(const void* a, const void* bt, const int* tokens,
                    const void* beta_exit, const void* alpha_fin, void* store,
                    void* beta_first, int W, int T, int M,
                    cudaStream_t stream) {
-  constexpr bool G = k4_global_a<S, R>();
+  constexpr bool G = a_in_global<S, R>();
   const size_t smem = forward_smem<S, R, G>();  // the same a and one row a warp
   const cudaError_t err = allow_smem(k4_reverse_kernel<S, R, G>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -242,18 +233,11 @@ int k4_reverse_r(const void* a, const void* bt, const int* tokens,
 
 extern "C" {
 
-// Pad width of the transposed emission table bt and of a store row (32*S).
-int k4_table_width(int M) { return 32 * ((M + 31) / 32); }
-
 int k4_max_states() { return 32 * kMaxS; }
 
-// Row stride of the zero-padded (32S, 32S + 1) copy of a that K4 reads
-// from global memory at M states in double (f64 != 0) or float, or 0 where
-// it takes a as the plain (M, M) matrix.
-int k4_a_stride(int M, int f64) {
-  const int S = (M + 31) / 32;
-  return f64 != 0 && S > 5 ? 32 * S + 1 : 0;
-}
+// The tables' layout is K1's: bt is (625, k1_table_width(M)), a store row
+// is k1_table_width(M) wide, and a is the padded copy of k1_a_stride(M,
+// f64) where that is not 0.
 
 // The forward: alpha_t into store row t for t < T-1, alpha_{T-1} into
 // alpha_fin (W, M).  Every float argument is double where f64 != 0.

@@ -3,10 +3,11 @@ plain PyTorch version and its build.
 
 K1 (``csrc/fwd.cu``) replaces the Pallas TPU kernel
 ``itrails_tpu/hmm/pallas_fwd.py:327 forward_fused``.  It computes the
-Rabiner-scaled linear forward recurrence over a (W, T) token batch in f32:
-exact table lookups and a full-f32 transition product.  Each window's
-loglik is an f32 Kahan sum that leaves the kernel as the f64 value of the
-sum minus its compensation.  The source note in ``fwd.cu`` states what
+Rabiner-scaled linear forward recurrence over a (W, T) token batch in the
+tables' dtype, float32 or float64 (the same kernel instantiated on each
+scalar): exact table lookups and a full-precision transition product.
+Each window's loglik is a Kahan sum that leaves the kernel as the f64
+value of the sum minus its compensation.  The source note in ``fwd.cu`` states what
 bounds it and what its design does about that.
 
 :func:`forward_fused` launches K1 for tensors on a CUDA device and runs
@@ -27,8 +28,9 @@ import torch
 from itrails_tpu_torch.data.tokens import N_TOKENS, PAD_TOKEN
 from itrails_tpu_torch.hmm._build import BUILD_DIR, CSRC, compile_library
 
-__all__ = ["build", "check_inputs", "check_state", "column0", "emission_rows",
-           "forward_fused", "forward_fused_plain", "forward_loglik_fused"]
+__all__ = ["bind_layout", "build", "check_inputs", "check_state", "column0",
+           "emission_rows", "forward_fused", "forward_fused_plain",
+           "forward_loglik_fused", "padded_tables"]
 
 _SRC = CSRC / "fwd.cu"
 _lib = None
@@ -47,15 +49,40 @@ def _library():
         lib = ctypes.CDLL(str(path))
         lib.k1_forward.restype = ctypes.c_int
         lib.k1_forward.argtypes = ([ctypes.c_void_p] * 7
-                                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        lib.k1_table_width.restype = ctypes.c_int
-        lib.k1_table_width.argtypes = [ctypes.c_int]
-        lib.k1_max_states.restype = ctypes.c_int
-        lib.k1_max_states.argtypes = []
+                                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        bind_layout(lib)
         lib.k1_error_string.restype = ctypes.c_char_p
         lib.k1_error_string.argtypes = [ctypes.c_int]
         _lib = lib
     return _lib
+
+
+def bind_layout(lib):
+    """Declares the exports of ``csrc/fwd.cu`` that give the tables' layout
+    on the card, which every library that includes it carries:
+    ``k1_table_width(M)``, ``k1_a_stride(M, f64)`` and ``k1_max_states()``."""
+    lib.k1_table_width.restype = ctypes.c_int
+    lib.k1_table_width.argtypes = [ctypes.c_int]
+    lib.k1_a_stride.restype = ctypes.c_int
+    lib.k1_a_stride.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.k1_max_states.restype = ctypes.c_int
+    lib.k1_max_states.argtypes = []
+
+
+def padded_tables(lib, a, bfull, stride):
+    """The tables as a kernel reads them: the transposed emission table
+    zero-padded to (625, 32S) (``lib.k1_table_width``), and ``a`` itself,
+    or, where ``stride`` is not 0, a zero-padded (32S, ``stride``) copy
+    that the kernel reads from global memory (L2)."""
+    m = a.shape[0]
+    width = lib.k1_table_width(m)
+    bt = torch.zeros((N_TOKENS, width), dtype=a.dtype, device=a.device)
+    bt[:, :m] = bfull.T
+    if stride:
+        padded = torch.zeros((width, stride), dtype=a.dtype, device=a.device)
+        padded[:m, :m] = a
+        a = padded
+    return a, bt
 
 
 def emission_rows(bt, tok):
@@ -81,11 +108,16 @@ def column0(bfull, pi, tok0):
 
 
 def check_inputs(name, a, bfull, pi, tokens, max_states,
-                 dtype=torch.float32):
+                 dtypes=(torch.float32,)):
     """Raise unless the tables and tokens are what a kernel takes: a (W, T)
     int32 token batch and tables a (M, M), bfull (M, 625), pi (M,) (unless
-    it is None: a kernel that does not read it) of ``dtype`` with
-    1 <= M <= ``max_states``, all contiguous on the tokens' device."""
+    it is None: a kernel that does not read it), all of one dtype among
+    ``dtypes``, with 1 <= M <= ``max_states``, all contiguous on the
+    tokens' device."""
+    if a.dtype not in dtypes:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise ValueError(f"{name}: the tables must be {names}, got {a.dtype}")
+    dtype = a.dtype
     dev = tokens.device
     if tokens.dim() != 2 or tokens.dtype != torch.int32:
         raise ValueError(f"{name}: tokens must be a (W, T) int32 tensor, "
@@ -153,33 +185,33 @@ def forward_fused(a, bfull, pi, tokens):
     Returns ``(alpha, loglik)``: alpha (W, M), the normalized final state
     distribution, and loglik (W,), the per-window log-likelihoods;
     ``log(alpha) + loglik[:, None]`` is the log-space alpha of
-    ``decoders.forward``.  On CUDA the inputs must be contiguous float32
-    (int32 tokens); alpha is then float32 and loglik float64 (the kernel's
-    compensated f32 sum).  On the CPU the plain version runs in the dtype
-    of ``a``.
+    ``decoders.forward``.  On CUDA the tables must be contiguous, all
+    float32 or all float64, and the tokens int32; alpha is then in the
+    tables' dtype and loglik float64 (the kernel's compensated sum).  On
+    the CPU the plain version runs in the dtype of ``a``.
     """
     if tokens.device.type == "cpu":
         return forward_fused_plain(a, bfull, pi, tokens)
     if tokens.device.type != "cuda":
         raise ValueError(f"forward_fused: unsupported device {tokens.device}")
     lib = _library()
-    check_inputs("forward_fused", a, bfull, pi, tokens, lib.k1_max_states())
+    check_inputs("forward_fused", a, bfull, pi, tokens, lib.k1_max_states(),
+                 (torch.float32, torch.float64))
     dev = tokens.device
     w, t_len = tokens.shape
     m = a.shape[0]
+    f64 = int(a.dtype == torch.float64)
 
     with torch.cuda.device(dev):
         _, al0, s0 = column0(bfull, pi, tokens[:, 0])
         al0, ll0 = al0.contiguous(), torch.log(s0)
-        bt = torch.zeros((N_TOKENS, lib.k1_table_width(m)),
-                         dtype=torch.float32, device=dev)
-        bt[:, :m] = bfull.T
-        alpha = torch.empty((w, m), dtype=torch.float32, device=dev)
+        a_k, bt = padded_tables(lib, a, bfull, lib.k1_a_stride(m, f64))
+        alpha = torch.empty((w, m), dtype=a.dtype, device=dev)
         ll = torch.empty((w,), dtype=torch.float64, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.k1_forward(a.data_ptr(), bt.data_ptr(), al0.data_ptr(),
+        rc = lib.k1_forward(a_k.data_ptr(), bt.data_ptr(), al0.data_ptr(),
                             ll0.data_ptr(), tokens.data_ptr(),
-                            alpha.data_ptr(), ll.data_ptr(), w, t_len, m,
+                            alpha.data_ptr(), ll.data_ptr(), w, t_len, m, f64,
                             stream)
         if rc != 0:
             raise RuntimeError("K1 launch failed: "
@@ -196,6 +228,6 @@ def forward_loglik_fused(a, bfull, pi, tokens):
     are summed in f64: a genome-scale total is ~1e6 nats where one f32 ULP
     is 0.125, coarse enough to hide a short optimizer step's improvement;
     on the card each window's value is already f64 (K1's compensated
-    sum)."""
+    sum, in the tables' arithmetic)."""
     _, ll = forward_fused(a, bfull, pi, tokens)
     return ll.to(torch.float64).sum()

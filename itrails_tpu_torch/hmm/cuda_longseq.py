@@ -7,9 +7,10 @@ K5 (``csrc/operators.cu``) replaces the Pallas TPU kernel
 over a (C, L) token matrix: from ``G = I``, for each column of a chunk,
 ``G <- (G @ a) * e(tok)`` followed by a division by the max entry, whose
 log is added to the chunk's log scale; a PAD column keeps G and adds
-nothing.  The operators are float32 on the card and the log scales
-float64.  The source note in ``operators.cu`` states what bounds K5 and
-what its design does about that.
+nothing.  The operators are in the tables' dtype, float32 or float64
+(K5 is instantiated on each), and the log scales float64.  The source
+note in ``operators.cu`` states what bounds K5 and what its design does
+about that.
 
 :func:`chunk_operators_fused` launches K5 for tensors on a CUDA device and
 runs :func:`chunk_operators` only for tensors on the CPU; a CUDA input
@@ -24,9 +25,10 @@ import ctypes
 
 import torch
 
-from itrails_tpu_torch.data.tokens import N_TOKENS, PAD_TOKEN
+from itrails_tpu_torch.data.tokens import PAD_TOKEN
 from itrails_tpu_torch.hmm._build import BUILD_DIR, CSRC, compile_library
-from itrails_tpu_torch.hmm.cuda_fwd import check_inputs, emission_rows
+from itrails_tpu_torch.hmm.cuda_fwd import (bind_layout, check_inputs,
+                                            emission_rows, padded_tables)
 
 __all__ = ["build", "chunk_operators", "chunk_operators_fused"]
 
@@ -46,12 +48,13 @@ def _library():
         path, _ = build()
         lib = ctypes.CDLL(str(path))
         lib.k5_operators.restype = ctypes.c_int
-        lib.k5_operators.argtypes = ([ctypes.c_void_p] * 5
-                                     + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        for name in ("k5_table_width", "k5_a_stride"):
-            fn = getattr(lib, name)
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_int]
+        lib.k5_operators.argtypes = ([ctypes.c_void_p] * 6
+                                     + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        bind_layout(lib)
+        lib.k5_a_stride.restype = ctypes.c_int
+        lib.k5_a_stride.argtypes = [ctypes.c_int]
+        lib.k5_g_scratch.restype = ctypes.c_int
+        lib.k5_g_scratch.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.k5_max_states.restype = ctypes.c_int
         lib.k5_max_states.argtypes = []
         lib.k5_error_string.restype = ctypes.c_char_p
@@ -92,10 +95,10 @@ def chunk_operators_fused(a, bfull, stream):
     ``(ops (C, M, M), logz (C,) float64)``, the contract of
     :func:`chunk_operators`.
 
-    On CUDA this launches K5, which takes contiguous float32 tables a
-    (M, M) and bfull (M, 625) with M <= 224 and contiguous int32 tokens,
-    and ops are float32.  On the CPU the plain version runs in the dtype
-    of ``a``."""
+    On CUDA this launches K5, which takes contiguous tables a (M, M) and
+    bfull (M, 625), both float32 or both float64, with M <= 224, and
+    contiguous int32 tokens; ops are in the tables' dtype.  On the CPU the
+    plain version runs in the dtype of ``a``."""
     if stream.device.type == "cpu":
         return chunk_operators(a, bfull, stream.reshape(-1), stream.shape[1])
     if stream.device.type != "cuda":
@@ -103,25 +106,23 @@ def chunk_operators_fused(a, bfull, stream):
                          f"{stream.device}")
     lib = _library()
     check_inputs("chunk_operators_fused", a, bfull, None, stream,
-                 lib.k5_max_states())
+                 lib.k5_max_states(), (torch.float32, torch.float64))
     dev = stream.device
     c, length = stream.shape
     m = a.shape[0]
-    f32 = {"dtype": torch.float32, "device": dev}
+    f64 = int(a.dtype == torch.float64)
 
     with torch.cuda.device(dev):
-        width = lib.k5_table_width(m)
-        bt = torch.zeros((N_TOKENS, width), **f32)
-        bt[:, :m] = bfull.T
-        stride = lib.k5_a_stride(m)
-        if stride:  # K5 reads a zero-padded copy of a from global memory
-            padded = torch.zeros((width, stride), **f32)
-            padded[:m, :m] = a
-            a = padded
-        ops = torch.empty((c, m, m), **f32)
+        a_k, bt = padded_tables(lib, a, bfull, lib.k5_a_stride(m))
+        ops = torch.empty((c, m, m), dtype=a.dtype, device=dev)
         logz = torch.empty((c,), dtype=torch.float64, device=dev)
-        rc = lib.k5_operators(a.data_ptr(), bt.data_ptr(), stream.data_ptr(),
-                              ops.data_ptr(), logz.data_ptr(), c, length, m,
+        scratch = lib.k5_g_scratch(m, f64)  # G in global memory, per chunk
+        gbuf = (torch.empty((c, scratch), dtype=a.dtype, device=dev)
+                if scratch else None)
+        rc = lib.k5_operators(a_k.data_ptr(), bt.data_ptr(), stream.data_ptr(),
+                              ops.data_ptr(), logz.data_ptr(),
+                              None if gbuf is None else gbuf.data_ptr(), c,
+                              length, m, f64,
                               torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError("K5 launch failed: "

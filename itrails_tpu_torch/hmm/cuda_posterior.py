@@ -43,10 +43,11 @@ import ctypes
 
 import torch
 
-from itrails_tpu_torch.data.tokens import N_TOKENS, PAD_TOKEN
+from itrails_tpu_torch.data.tokens import PAD_TOKEN
 from itrails_tpu_torch.hmm._build import BUILD_DIR, CSRC, compile_library
-from itrails_tpu_torch.hmm.cuda_fwd import (check_inputs, check_state, column0,
-                                            emission_rows)
+from itrails_tpu_torch.hmm.cuda_fwd import (bind_layout, check_inputs,
+                                            check_state, column0,
+                                            emission_rows, padded_tables)
 
 __all__ = ["POSTERIOR_BUDGET_BYTES", "beta_sweep", "beta_sweep_plain", "build",
            "posterior_fused", "posterior_fused_plain", "store_row_bytes",
@@ -79,10 +80,7 @@ def _library():
         lib.k4_reverse.restype = ctypes.c_int
         lib.k4_reverse.argtypes = ([ctypes.c_void_p] * 7
                                    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        lib.k4_table_width.restype = ctypes.c_int
-        lib.k4_table_width.argtypes = [ctypes.c_int]
-        lib.k4_a_stride.restype = ctypes.c_int
-        lib.k4_a_stride.argtypes = [ctypes.c_int, ctypes.c_int]
+        bind_layout(lib)
         lib.k4_max_states.restype = ctypes.c_int
         lib.k4_max_states.argtypes = []
         lib.k4_error_string.restype = ctypes.c_char_p
@@ -185,27 +183,15 @@ def _prepare(name, a, bfull, pi, tokens, beta_exit):
     if tokens.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {tokens.device}")
     lib = _library()
-    dtype = a.dtype
-    tables = [x for x in (a, bfull, pi) if x is not None]
-    if (dtype not in (torch.float32, torch.float64)
-            or any(x.dtype != dtype for x in tables)):
-        raise ValueError(f"{name}: the tables must be all float32 or all "
-                         f"float64, got {[x.dtype for x in tables]}")
-    check_inputs(name, a, bfull, pi, tokens, lib.k4_max_states(), dtype)
+    check_inputs(name, a, bfull, pi, tokens, lib.k4_max_states(),
+                 (torch.float32, torch.float64))
     m = a.shape[0]
     if beta_exit is not None:
         check_state(name, "beta_exit", beta_exit, (tokens.shape[0], m),
-                    dtype, tokens.device)
-    f64 = int(dtype == torch.float64)
-    width = lib.k4_table_width(m)
-    bt = torch.zeros((N_TOKENS, width), dtype=dtype, device=tokens.device)
-    bt[:, :m] = bfull.T
-    stride = lib.k4_a_stride(m, f64)
-    if stride:
-        padded = torch.zeros((width, stride), dtype=dtype, device=tokens.device)
-        padded[:m, :m] = a
-        a = padded
-    return lib, a, bt, f64
+                    a.dtype, tokens.device)
+    f64 = int(a.dtype == torch.float64)
+    a_k, bt = padded_tables(lib, a, bfull, lib.k1_a_stride(m, f64))
+    return lib, a_k, bt, f64
 
 
 def _check_rc(lib, rc):

@@ -71,8 +71,9 @@ def forward_loglik(a, bfull, pi, tokens):
 def forward_loglik_fast(a, bfull, pi, tokens):
     """Total log-likelihood (f64 scalar tensor) of a (W, T) token batch.
 
-    On the card this is kernel K1, which takes contiguous float32 tables;
-    on the CPU it is K1's plain version in the tables' dtype."""
+    On the card this is kernel K1, which takes contiguous float32 or
+    float64 tables; on the CPU it is K1's plain version in the tables'
+    dtype."""
     return cuda_fwd.forward_loglik_fused(a, bfull, pi, tokens)
 
 

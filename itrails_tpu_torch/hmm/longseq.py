@@ -32,7 +32,8 @@ __all__ = ["CHUNK", "OPERATOR_BUDGET_BYTES", "chunk_operators",
 CHUNK = 1024
 # Bytes of the (C_g, M, M) operators of one group of chunks, built and folded
 # before the next group is built: 368,224 chunks (377 M columns) at M = 27,
-# 15,175 chunks (15.5 M columns) at M = 133 in float32.
+# 15,175 chunks (15.5 M columns) at M = 133 in float32, half as many in
+# float64.
 OPERATOR_BUDGET_BYTES = 1 << 30
 
 
@@ -58,8 +59,10 @@ def _group_product(operators, a, bfull, stream):
     an odd last operator joining the last pair.  The f64 copy of the
     operators replaces K5's output, and each level's products replace the
     level before, so at most 12 bytes an entry of the (C, M, M) operators
-    are held at once: 3x their float32 bytes.  ``operators`` is K5's
-    wrapper or its plain version."""
+    are held at once: 3x their float32 bytes, 1.5x their float64 bytes
+    (K5's own output is then the f64 copy), plus, in float64 above
+    M = 96, K5's scratch for G while it runs (32S/M x the operators'
+    bytes).  ``operators`` is K5's wrapper or its plain version."""
     ops, logz = operators(a, bfull, stream)
     ops = ops.double()
     z = logz.sum()
@@ -88,8 +91,8 @@ def forward_loglik_long(a, bfull, pi, tokens, *, chunk: int = CHUNK):
     they are O(C M^3), 1/``chunk`` of the chunks' own work, and no TF32
     setting of the caller's reaches them.  The operators come from
     ``cuda_longseq.chunk_operators_fused``: K5 on the card, where the
-    tables must be contiguous float32, and its plain version in the
-    tables' dtype on the CPU."""
+    tables must be contiguous float32 or float64, and its plain version on
+    the CPU, each in the tables' dtype."""
     return _forward_loglik_long(cuda_longseq.chunk_operators_fused, a, bfull,
                                 pi, tokens, chunk)
 

@@ -7,9 +7,10 @@ Here the model rebuild runs in float64 on the engine's device.  A
 value-only evaluation is one launch of kernel K1 per length-class bucket
 on the card (its plain version on the CPU), plus, for each block above the
 long-block threshold, the sequence-parallel transfer-operator path with
-kernel K5 (``hmm/longseq.py``); an exact-gradient evaluation is one call of
-kernel K2 per bucket and per long block, whose gradient torch autograd
-carries back through the f64 build to the parameters.
+kernel K5 (``hmm/longseq.py``), both in the engine's ``dtype``; an
+exact-gradient evaluation is one call of kernel K2 per bucket and per long
+block, in float32 on the card, whose gradient torch autograd carries back
+through the f64 build to the parameters.
 
 Artifacts per evaluation match the reference: a row
 ``[n_eval, params..., loglik, seconds]`` appended to
@@ -67,15 +68,23 @@ class LoglikEngine:
 
     Both are exact (no splitting), so the total equals the single-batch
     log-likelihood up to float rounding; the per-batch totals are summed in
-    f64."""
+    f64.
+
+    The value is decoded in ``dtype`` on either device (K1 and K5 are
+    instantiated on float32 and float64).  The default, float64, is what
+    scipy's finite differences need: their step of 1e-8 moves a
+    genome-scale loglik by ~1e-3 nats, below the rounding of an f32
+    recursion (~1e-2 nats at 1.3 M columns).  The gradient is decoded in
+    float32 on the card, K2's only scalar, and in ``dtype`` on the CPU."""
 
     def __init__(self, v_lst, n_int_AB, n_int_ABC, dtype="float64",
                  device="cuda", long_threshold=windows.LONG_BLOCK_THRESHOLD):
         self.device = resolve_device(device)
-        # the decode's dtype, set here only: K1 computes in float32 on the
-        # card; ``dtype`` picks the plain version's dtype on the CPU
-        self.dtype = (torch.float32 if self.device.type == "cuda"
-                      else getattr(torch, dtype))
+        # the decodes' dtypes, set here only: the value's, and the
+        # gradient's (K2 computes in float32 on the card)
+        self.dtype = getattr(torch, dtype)
+        self.grad_dtype = (torch.float32 if self.device.type == "cuda"
+                           else self.dtype)
         lengths = [len(v) for v in v_lst]
         for v in v_lst:
             v = np.asarray(v)
@@ -110,17 +119,17 @@ class LoglikEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _tables(self, params: dict):
-        """The decode's ``(a, bfull, pi)`` in the decode dtype, built in f64
-        from the resolved ``params`` (floats or 0-d f64 tensors)."""
+    def _tables(self, params: dict, dtype):
+        """The decode's ``(a, bfull, pi)`` in ``dtype``, built in f64 from
+        the resolved ``params`` (floats or 0-d f64 tensors)."""
         a, b, pi, _, _ = self._builder(*(params[k] for k in _BUILD_ARGS))
         bfull = decoders.emission_table(b, self._agg)
-        return tuple(x.to(self.dtype).contiguous() for x in (a, bfull, pi))
+        return tuple(x.to(dtype).contiguous() for x in (a, bfull, pi))
 
     def loglik(self, params: dict) -> float:
         """Total log-likelihood at the resolved, mu-scaled ``params``."""
         t0 = time.perf_counter()
-        a, bfull, pi = self._tables(params)
+        a, bfull, pi = self._tables(params, self.dtype)
         self._sync()
         t1 = time.perf_counter()
         total = torch.zeros((), dtype=torch.float64, device=self.device)
@@ -155,7 +164,7 @@ class LoglikEngine:
                                requires_grad=True)
             d = dict(fixed_params)
             d.update(zip(optim_variables, vec.unbind()))
-            a, bfull, pi = self._tables(resolver(case, d))
+            a, bfull, pi = self._tables(resolver(case, d), self.grad_dtype)
             self._sync()
             t1 = time.perf_counter()
             total = LoglikFn.apply(a, bfull, pi, *self.batches)

@@ -1,6 +1,7 @@
 """The port's data path and likelihood engine against the JAX package, on
 the CPU: MAF tokens, window packing, simulation, and the total
-log-likelihood of ``LoglikEngine`` (rtol 1e-10, both in f64)."""
+log-likelihood of ``LoglikEngine`` (rtol 1e-10, both in f64); on the card,
+the engine's f64 value against the CPU's at rtol 1e-12."""
 
 import os
 
@@ -142,6 +143,76 @@ def test_long_block_runs_on_the_operator_path(monkeypatch):
     np.testing.assert_allclose(value, ref, rtol=1e-10)
     whole = LoglikEngine(v_lst, 1, 2, device="cpu")
     np.testing.assert_allclose(value, whole.loglik(params), rtol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_value_is_decoded_in_the_engine_dtype(dtype, monkeypatch):
+    """The value path (K1 on the buckets, K5 on a long block) gets the
+    tables in the engine's ``dtype``, as it does on the card, where
+    float64 is what scipy's finite differences need."""
+    from itrails_tpu_torch.data.maf import maf_tokens
+    from itrails_tpu_torch.hmm import cuda_fwd, cuda_longseq
+    from itrails_tpu_torch.optim.optimizer import LoglikEngine
+
+    v_lst = maf_tokens(MAF, SPECIES)
+    rng = np.random.default_rng(6)
+    v_lst = v_lst + [rng.integers(0, 625, size=700).astype(np.int32)]
+    engine = LoglikEngine(v_lst, 1, 2, dtype=dtype, device="cpu",
+                          long_threshold=500)
+    assert engine.dtype == engine.grad_dtype == getattr(torch, dtype)
+    seen = []
+    forward, operators = cuda_fwd.forward_fused, cuda_longseq.chunk_operators_fused
+
+    def spy_forward(a, bfull, pi, tokens):
+        seen.append(("K1", a.dtype, bfull.dtype, pi.dtype))
+        return forward(a, bfull, pi, tokens)
+
+    def spy_operators(a, bfull, stream):
+        seen.append(("K5", a.dtype, bfull.dtype))
+        return operators(a, bfull, stream)
+
+    monkeypatch.setattr(cuda_fwd, "forward_fused", spy_forward)
+    monkeypatch.setattr(cuda_longseq, "chunk_operators_fused", spy_operators)
+    value = engine.loglik(_resolved(1, 2))
+    want = getattr(torch, dtype)
+    assert np.isfinite(value)
+    assert [x[0] for x in seen] == ["K1"] * engine.n_buckets + ["K5"]
+    assert all(d == want for x in seen for d in x[1:])
+
+
+@pytest.mark.gpu
+def test_engine_on_the_card_decodes_the_value_in_f64_and_the_gradient_in_f32():
+    """On the card the value path honours ``dtype`` (default float64: K1
+    and K5 in f64, within 1e-12 of the CPU engine) and the gradient runs
+    K2 in float32."""
+    from itrails_tpu_torch.data.maf import maf_tokens
+    from itrails_tpu_torch.hmm import cuda_fwd, cuda_longseq
+    from itrails_tpu_torch.optim.cases import resolve_times
+    from itrails_tpu_torch.optim.optimizer import LoglikEngine
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run `pytest -m gpu tests/test_torch_*.py` "
+                    "on the H100")
+    v_lst = maf_tokens(MAF, SPECIES)
+    rng = np.random.default_rng(6)
+    v_lst = v_lst + [rng.integers(0, 625, size=3000).astype(np.int32)]
+    card = LoglikEngine(v_lst, 1, 2, device="cuda", long_threshold=2000)
+    cpu = LoglikEngine(v_lst, 1, 2, device="cpu", long_threshold=2000)
+    assert card.dtype == torch.float64 and card.grad_dtype == torch.float32
+    k1, k5 = cuda_fwd.forward_fused.launches, cuda_longseq.chunk_operators_fused.launches
+    params = _resolved(1, 2)
+    np.testing.assert_allclose(card.loglik(params), cpu.loglik(params),
+                               rtol=1e-12)
+    assert cuda_fwd.forward_fused.launches - k1 == card.n_buckets
+    assert cuda_longseq.chunk_operators_fused.launches - k5 == 1
+    names = ["t_1", "t_2"]
+    fixed = {k: v for k, v in dict(PARAMS, n_int_AB=1, n_int_ABC=2).items()
+             if k not in names}
+    ll, g = card.loglik_and_grad_fn(names, fixed, frozenset(["t_1"]),
+                                    resolve_times)(
+        np.array([PARAMS[n] for n in names]))
+    np.testing.assert_allclose(ll, cpu.loglik(params), rtol=1e-6)
+    assert np.isfinite(g).all()
 
 
 def test_engine_rejects_tokens_outside_the_alphabet():

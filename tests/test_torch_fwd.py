@@ -6,7 +6,8 @@ Tolerances: f64 against ``itrails_tpu.hmm.decoders.forward`` at rtol 1e-10
 f32 against ``pallas_fwd.forward_fused(..., interpret=True)`` at atol 2e-4
 per window, as in tests/test_pallas_fwd.py.  On the card, the kernel's
 per-window loglik against the plain version in f64 at rtol 1e-5: f32
-rounding of the per-step normalizers, summed over T steps.
+rounding of the per-step normalizers, summed over T steps; K1 on f64
+tables at rtol 1e-10.
 """
 
 import jax.numpy as jnp
@@ -198,3 +199,42 @@ def test_k1_matches_plain_on_the_card(cuda_device, m, w, t):
                                rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(al.double().cpu().numpy(), al_ref.cpu().numpy(),
                                atol=1e-6)
+
+
+def test_check_inputs_takes_one_dtype_among_those_allowed():
+    """The kernels' shared input check: the tables are all of one dtype,
+    and that dtype is one the kernel is instantiated on."""
+    from itrails_tpu_torch.hmm.cuda_fwd import check_inputs
+
+    a, bfull, pi = _torch(*_random_model(5))
+    tok = torch.zeros((2, 3), dtype=torch.int32)
+    both = (torch.float32, torch.float64)
+    check_inputs("k", a, bfull, pi, tok, 224, both)
+    check_inputs("k", a.float(), bfull.float(), pi.float(), tok, 224, both)
+    with pytest.raises(ValueError, match="must be float32, got torch.float64"):
+        check_inputs("k", a, bfull, pi, tok, 224)
+    with pytest.raises(ValueError, match="bfull must be float64"):
+        check_inputs("k", a, bfull.float(), pi, tok, 224, both)
+    with pytest.raises(ValueError, match="float32 or float64, got torch.float16"):
+        check_inputs("k", a.half(), bfull.half(), pi.half(), tok, 224, both)
+    check_inputs("k", a, bfull, None, tok, 224, both)  # a kernel without pi
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,w,t", [(27, 64, 300), (133, 48, 257), (182, 20, 100),
+                                   (224, 12, 80)])
+def test_k1_in_f64_matches_plain_on_the_card(cuda_device, m, w, t):
+    from itrails_tpu_torch.hmm import cuda_fwd
+
+    a, bfull, pi = _torch(*_random_model(m), device=cuda_device)
+    tok = torch.as_tensor(_tokens(w, t), device=cuda_device)
+    before = cuda_fwd.forward_fused.launches
+    al, ll = cuda_fwd.forward_fused(a, bfull, pi, tok)
+    torch.cuda.synchronize()
+    assert cuda_fwd.forward_fused.launches == before + 1
+    assert al.dtype == torch.float64 and ll.dtype == torch.float64
+    al_ref, ll_ref = cuda_fwd.forward_fused_plain(a, bfull, pi, tok)
+    np.testing.assert_allclose(ll.cpu().numpy(), ll_ref.cpu().numpy(),
+                               rtol=1e-10)
+    np.testing.assert_allclose(al.cpu().numpy(), al_ref.cpu().numpy(),
+                               atol=1e-10)

@@ -11,7 +11,8 @@ split-bf16 table and rescales rows every four columns).
 ``forward_loglik_long`` against the JAX function and the sequential forward
 in f64 at rtol 1e-9, as tests/test_longseq.py holds the JAX function.  On
 the card, K5 against the plain version in f64 at atol 5e-5 on the
-operators and rtol 1e-6 on the log scales (f32 products over one chunk).
+operators and rtol 1e-6 on the log scales (f32 products over one chunk),
+and K5 on f64 tables at atol 1e-10 and rtol 1e-12.
 """
 
 import jax.numpy as jnp
@@ -242,6 +243,30 @@ def test_k5_matches_plain_on_the_card(cuda_device, m):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("m", [27, 96, 133, 160, 182, 224])
+def test_k5_in_f64_matches_plain_on_the_card(cuda_device, m):
+    """K5 on f64 tables, a and G in shared memory (M <= 96), a in L2
+    (M <= 160) and G in a global scratch too (M > 160)."""
+    from itrails_tpu_torch.hmm import cuda_longseq
+
+    a, bfull, _ = _random_tables(m, cuda_device)
+    tok = torch.as_tensor(_stream(6, 128, seed=m), device=cuda_device)
+    before = cuda_longseq.chunk_operators_fused.launches
+    ops, logz = cuda_longseq.chunk_operators_fused(a.contiguous(),
+                                                   bfull.contiguous(), tok)
+    torch.cuda.synchronize()
+    assert cuda_longseq.chunk_operators_fused.launches == before + 1
+    assert ops.dtype == torch.float64 and logz.dtype == torch.float64
+    ops_ref, logz_ref = cuda_longseq.chunk_operators(a, bfull, tok.reshape(-1), 128)
+    np.testing.assert_allclose(ops.cpu().numpy(), ops_ref.cpu().numpy(),
+                               atol=1e-10)
+    np.testing.assert_allclose(logz.cpu().numpy(), logz_ref.cpu().numpy(),
+                               rtol=1e-12)
+    assert torch.equal(ops[2], torch.eye(m, dtype=torch.float64,
+                                         device=cuda_device))
+
+
+@pytest.mark.gpu
 def test_long_value_on_the_card_matches_the_f64_plain_version(cuda_device):
     from itrails_tpu_torch.hmm import cuda_fwd, longseq
 
@@ -257,6 +282,9 @@ def test_long_value_on_the_card_matches_the_f64_plain_version(cuda_device):
     assert got.dtype == torch.float64
     np.testing.assert_allclose(float(got), float(ref), rtol=1e-6)
     np.testing.assert_allclose(float(ref), float(seq), rtol=1e-9)
+    got64 = longseq.forward_loglik_long(*(x.contiguous() for x in (a, bfull, pi)),
+                                        tok)
+    np.testing.assert_allclose(float(got64), float(ref), rtol=1e-12)
 
 
 @pytest.mark.gpu
