@@ -34,6 +34,10 @@ power limit):
    all-PAD chunk and a PAD tail: operators at atol 5e-5, log scales at
    rtol 1e-6 (and, no gate, the f32 rounding of the tables' own part),
    and K5 on the f64 tables against the plain version on them at 1e-10;
+   then K2 on the chunk windows of a simulated 320 kb block at each model,
+   entered and left through boundary rows, against its plain version in
+   f64 with the same rows: loglik rtol 1e-6, every gradient entry rtol
+   2e-3;
 3. the value-only path: ``itrails_tpu_torch.cli.optimize.main --no-grad``
    (Nelder-Mead) at 3x3 on a MAF simulated from the 3x3 model (1.32 M
    columns: 100 blocks of 10 kb and one 320 kb block), at its default
@@ -47,12 +51,14 @@ power limit):
    runs phases 3 to 5, and checked after phase 5): the same points, and
    every finite difference within 1e-6 nats of the CPU's;
 4. the main path, the CLI's default: exact-gradient L-BFGS-B on the same
-   MAF, with K2's call counter reset just before and read just after (the
-   long block a one-window K2 batch; no K1 or K5 launch),
-   evaluation 0's value and gradient held against the plain version, and
-   K2 on each of its batches, the 320 kb block whole, against the plain
-   version (f64; the one-window block on the CPU, where its 320,000 small
-   steps run faster than on the card);
+   MAF, with K2's call counter and K1's and K5's launch counters reset just
+   before and read just after (the long block through the chunk route: K5
+   once and one K2 call over its chunk windows an evaluation, every K2
+   call's windows shorter than the block; no K1 launch),
+   evaluation 0's value and gradient held against the plain version (f64;
+   the long block walked as one window on the CPU, where its 320,000 small
+   steps run faster than on the card), and K2 on the bucket and the chunk
+   route on the long block against their plain versions in f64 on the card;
 5. genome scale: ``LoglikEngine`` on 33.5 M simulated columns (4096 x
    8192), seconds per evaluation split into build and decode for the
    value, and into build, decode (K2) and build backward for the gradient;
@@ -84,7 +90,15 @@ power limit):
    every value within rtol 1e-6 of the f64 plain operator path on the
    card, and through K5 and the operator product on the f64 tables within
    rtol 1e-10, with each route's milliseconds and the K5 route's peak
-   device memory.
+   device memory;
+11. the long-block gradient: the chunk route (K5, the boundary rows, one
+   K2 call) on f32 tables on phase 3's 320 kb block, a 320 kb block
+   simulated from the 7x7 model and 1e7 columns simulated from the 3x3
+   model, against its f64 plain version on the card (loglik rtol 1e-6,
+   every gradient entry rtol 2e-3), with its milliseconds and peak device
+   memory, and K2's one-window walk timed on the 3x3 320 kb block; then,
+   on the 320 kb blocks, K5, the boundary rows and K2 timed apart at chunks
+   of 256, 512 and 1,024 columns.
 
 Any failure exits non-zero.  The last two lines are the kernels' JSON
 record and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -133,10 +147,12 @@ POST_ATOL = 2e-5
 # K4 in f64 (phases 2 and 8) against the f64 plain version: the same
 # recursion in another summation order
 POST64_ATOL = 1e-10
-# phases 2 and 10: the length of the CLI's long block; phase 10's
-# simulated block, windows x columns joined into one block
+# phases 2, 10 and 11: the length of the CLI's long block; phase 10's
+# and phase 11's simulated 1e7-column block, windows x columns joined
 LONG_BLOCK = 320_000
 LONG_SIM = (1000, 10_000)
+# phase 11: the chunk lengths of the gradient route that are timed
+GRAD_CHUNKS = (256, 512, 1024)
 # phase 2: K5 against its plain version in f64 on the same f32 tables:
 # operators (max entry 1) and log scales, at the tolerance of the port's
 # CPU test against the Pallas operator kernel
@@ -151,7 +167,7 @@ VALUE64_RTOL = 1e-10
 # 1.32 M-column loglik by ~1e-3 nats; f64 rounding of the ~2e6-nat total
 # is ~1e-10 nats, f32 rounding ~1e-2
 FD_ATOL = 1e-6
-# phase 10: each route's long-block value against the f64 plain one
+# phases 10 and 11: each route's long-block value against the f64 plain one
 LONG_RTOL = 1e-6
 # phase 2: K4's f32 error as one state's runs grow: the recombination rates
 # (START's r scaled) and the windows x columns simulated from each model
@@ -507,6 +523,75 @@ def phase_k2(card, dev, m_label, n_ab, n_abc, w, t, seed, reps, k1_ms):
           f"bound")
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def simulated_block(dev, n_ab, n_abc, seed, shape=None):
+    """A long block simulated from the model at START, 1-D on ``dev``:
+    ``shape`` (windows x columns, joined; default 32 x 10,000, a 320 kb
+    block), with a PAD run and a PAD tail."""
+    import torch
+
+    from itrails_tpu_torch.data.simulate import simulate_token_batch
+
+    a, _, pi, b = build_tables(n_ab, n_abc, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (32, LONG_BLOCK // 32) if shape is None else shape
+    tok = simulate_token_batch(a, b, pi, *shape, gen).reshape(-1)
+    tok[100_003:100_703] = -1
+    tok[-291:] = -1
+    return tok
+
+
+def phase_k2_chunks(card, dev, m_label, n_ab, n_abc, seed, reps):
+    """K2 on the chunk windows of a simulated 320 kb block, entered and
+    left through boundary rows (those of the f64 plain operators), against
+    its plain version in f64 with the same rows."""
+    import torch
+
+    from itrails_tpu_torch.data.tokens import PAD_TOKEN
+    from itrails_tpu_torch.hmm import cuda_fwd, cuda_grad, longseq
+
+    a, bfull, pi, _ = build_tables(n_ab, n_abc, dev)
+    m = a.shape[0]
+    chunk = longseq.GRAD_CHUNK
+    tok = simulated_block(dev, n_ab, n_abc, seed)
+    n_chunks = -(-(len(tok) - 1) // chunk)
+    stream = longseq.chunk_matrix(tok, 0, n_chunks, chunk)
+    ops, _ = longseq.chunk_operators(a, bfull, stream.reshape(-1), chunk)
+    _, al0, _ = cuda_fwd.column0(bfull, pi, tok[:1])
+    alpha, beta = longseq.boundary_rows(ops, al0[0], torch.ones_like(al0[0]))
+    del ops
+    pad = torch.full((n_chunks, 1), PAD_TOKEN, dtype=tok.dtype, device=dev)
+    windows = torch.cat([pad, stream], dim=1)
+    a32, b32, p32 = (x.float().contiguous() for x in (a, bfull, pi))
+    rows32 = {"entry_alpha": alpha.float(), "exit_beta": beta.float()}
+
+    def k2():
+        return cuda_grad.loglik_and_grads_fused(a32, b32, p32, windows, **rows32)
+
+    ll, grads = k2()
+    torch.cuda.synchronize()
+    ll_ref, grads_ref = cuda_grad.loglik_and_grads_plain(
+        a, bfull, pi, windows, entry_alpha=alpha, exit_beta=beta)
+    rel = float((ll - ll_ref).abs() / ll_ref.abs())
+    errs, medians, ok = grad_errors(grads, grads_ref)
+    check(all(bool(torch.isfinite(g).all()) for g in grads)
+          and float(grads[2].abs().max()) == 0.0,
+          f"K2 chunks {m_label}: non-finite gradient or a dpi term")
+    check(rel <= 1e-6, f"K2 chunks {m_label}: loglik off by {rel:.3g}")
+    check(ok, f"K2 chunks {m_label}: gradients off: {grad_note(errs, medians)}")
+    again = k2()
+    check(bool(torch.equal(again[0], ll)) and all(
+        torch.equal(x, y) for x, y in zip(again[1], grads)),
+          f"K2 chunks {m_label}: two calls on the same inputs differ")
+    ms = cuda_ms(k2, reps)
+    bound_ms, bound_by = k2_bound_ms(m, windows)
+    print(f"{card} | phase 2 K2 chunk windows {m_label} M={m} "
+          f"W={n_chunks} T={chunk + 1} (a simulated {len(tok)}-column block, "
+          f"boundary rows of the f64 plain operators): loglik rel err "
+          f"{rel:.3g} (rtol 1e-6), {grad_note(errs, medians)}, bitwise equal "
+          f"on a second call; K2 {ms:.4f} ms (mean of {reps}), bound "
+          f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound")
 
 
 def kernel_split(fn, names=("viterbi_forward", "viterbi_backtrack")):
@@ -1036,13 +1121,14 @@ def phase_cli_fd(card, dev, workdir, cli):
 
 def phase_cli_grad(card, dev, workdir, cli):
     """The main path: the optimize CLI on its default, exact-gradient
-    L-BFGS-B, at 3x3 on phase 3's MAF."""
+    L-BFGS-B, at 3x3 on phase 3's MAF.  Returns its K2 calls, its K5
+    launches and its best-model YAML."""
     import torch
     import yaml
 
     from itrails_tpu_torch.cli.common import prepare_optimize_setup
     from itrails_tpu_torch.cli.optimize import main
-    from itrails_tpu_torch.hmm import cuda_fwd, cuda_grad, cuda_longseq
+    from itrails_tpu_torch.hmm import cuda_fwd, cuda_grad, cuda_longseq, longseq
     from itrails_tpu_torch.optim.cases import resolve_times
     from itrails_tpu_torch.optim.optimizer import LoglikEngine
 
@@ -1053,14 +1139,27 @@ def phase_cli_grad(card, dev, workdir, cli):
     with open(cfg_path, "w") as f:
         yaml.safe_dump(config, f)
     out = os.path.join(workdir, "run_grad", "sim")
-    cuda_grad.loglik_and_grads_fused.calls = 0
+    k2 = cuda_grad.loglik_and_grads_fused
+    shapes = []  # each K2 call's (W, T) and whether it took boundary rows
+
+    def recorded(a, bfull, pi, tokens, **rows):
+        shapes.append((tuple(tokens.shape), bool(rows)))
+        return k2(a, bfull, pi, tokens, **rows)
+
+    # in place of the wrapper, which counts its calls on its module name:
+    # those land on the recorder while it is there
+    cuda_grad.loglik_and_grads_fused = recorded
+    recorded.calls = 0
     cuda_fwd.forward_fused.launches = 0
     cuda_longseq.chunk_operators_fused.launches = 0
-    t0 = time.perf_counter()
-    main([cfg_path, "--output", out, "--maxiter", "3"])
-    torch.cuda.synchronize()
-    cli_s = time.perf_counter() - t0
-    calls = cuda_grad.loglik_and_grads_fused.calls
+    try:
+        t0 = time.perf_counter()
+        main([cfg_path, "--output", out, "--maxiter", "3"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+    finally:
+        cuda_grad.loglik_and_grads_fused = k2
+    calls = recorded.calls
     k1_launches = cuda_fwd.forward_fused.launches
     k5_launches = cuda_longseq.chunk_operators_fused.launches
 
@@ -1069,6 +1168,7 @@ def phase_cli_grad(card, dev, workdir, cli):
     with open(out + ".best_model.yaml") as f:
         best = yaml.safe_load(f)
     n_eval = rows.shape[0]
+    n_long = cli["per_eval"] - 1
     check(n_eval >= 2 and rows.shape[1] == 6 + 3, "grad history has the wrong shape")
     check(np.array_equal(rows[:, 0], np.arange(n_eval)),
           "grad history is not one row per evaluation")
@@ -1076,18 +1176,27 @@ def phase_cli_grad(card, dev, workdir, cli):
     best_ll = best["results"]["log_likelihood"]
     check(np.isfinite(best_ll) and best_ll == rows[:, -2].max(),
           "grad best-model loglik is not the best history row")
-    check(calls == n_eval * cli["per_eval"],
+    check(calls == n_eval * cli["per_eval"] and len(shapes) == calls,
           f"K2 called {calls} times for {n_eval} evaluations x "
-          f"{cli['per_eval']} batches")
-    check(k1_launches == 0 and k5_launches == 0,
+          f"{cli['per_eval']} batches (a bucket, and a chunk call per long "
+          f"block)")
+    check(k1_launches == 0 and k5_launches == n_eval * n_long,
           f"the gradient path launched K1 {k1_launches} times and K5 "
-          f"{k5_launches} times")
+          f"{k5_launches} times for {n_eval} evaluations x {n_long} long "
+          f"block(s)")
+    chunk_calls = [shape for shape, with_rows in shapes if with_rows]
+    check(len(chunk_calls) == n_eval * n_long
+          and all(t == longseq.GRAD_CHUNK + 1 for _, t in chunk_calls)
+          and all(t < LONG_BLOCK for (_, t), _ in shapes),
+          f"K2 walked a long block as one window, or not as chunks: {shapes}")
     rel = abs(rows[0, -2] - cli["ref"]) / abs(cli["ref"])
     check(rel <= 1e-6, f"grad evaluation 0 off the f64 reference by {rel:.3g}")
 
-    # evaluation 0's gradient: the engine's (K2 on every batch) against the
-    # plain f64 version on every batch, chained through the same build; on
-    # the way, K2 on each batch alone against the plain version
+    # evaluation 0's gradient: the engine's (K2 on each bucket, K5 and K2 on
+    # the long block's chunks) against the plain f64 version on every batch,
+    # the long block walked as one window on the CPU, chained through the
+    # same build; on the way, K2 on each bucket and the long-block route
+    # alone against their plain versions on the card
     setup = prepare_optimize_setup(config)
     names, x0 = setup["optim_variables"], np.asarray(setup["optim_list"])
     engine = LoglikEngine(cli["v_lst"], 3, 3, device=dev)
@@ -1101,26 +1210,32 @@ def phase_cli_grad(card, dev, workdir, cli):
     a, bfull, pi, _ = build_tables(3, 3, dev, d)
     tables = [x.detach() for x in (a, bfull, pi)]
     tables32 = [x.float().contiguous() for x in tables]
+    cpu = torch.device("cpu")
     sums = [torch.zeros_like(x) for x in tables]
-    per_batch = []  # K2 against the plain version, and its ms, per batch
+    per_batch = []  # each route against its plain version, and its ms
     t0 = time.perf_counter()
-    for i, tok in enumerate(engine.batches):
-        # the one-window long block's plain walk runs on the CPU
-        on = dev if i < engine.n_buckets else torch.device("cpu")
-        ll_p, grads_p = cuda_grad.loglik_and_grads_plain(
-            *(x.to(on) for x in tables), tok.to(on))
-        grads_p = [g.to(dev) for g in grads_p]
-        ll_b, grads_b = cuda_grad.loglik_and_grads_fused(*tables32, tok)
+    routes = [(tok, cuda_grad.loglik_and_grads_plain,
+               cuda_grad.loglik_and_grads_fused) for tok in engine.batches]
+    routes += [(tok, longseq.forward_loglik_long_and_grads_plain,
+                longseq.forward_loglik_long_and_grads)
+               for tok in engine.long_blocks]
+    for tok, plain, route in routes:
+        ll_p, grads_p = plain(*tables, tok)
+        ll_b, grads_b = route(*tables32, tok)
         b_rel = abs(float(ll_b) - float(ll_p)) / abs(float(ll_p))
         errs, medians, ok = grad_errors(grads_b, grads_p)
         check(b_rel <= 1e-6 and ok,
-              f"K2 on the {tuple(tok.shape)} batch off the plain version: "
+              f"the {tuple(tok.shape)} batch off the plain version: "
               f"loglik {b_rel:.3g}, {grad_note(errs, medians)}")
+        if tok.dim() == 1:  # the whole sum holds the one-window walk
+            _, grads_p = cuda_grad.loglik_and_grads_plain(
+                *(x.to(cpu) for x in tables), tok.to(cpu)[None])
         for acc, g in zip(sums, grads_p):
-            acc += g
-        ms = cuda_ms(lambda: cuda_grad.loglik_and_grads_fused(*tables32, tok), 1)
-        per_batch.append(f"{tuple(tok.shape)} {ms:.2f} ms, vs plain f64 on "
-                         f"{on.type}: loglik rel err {b_rel:.3g}, "
+            acc += g.to(dev)
+        ms = cuda_ms(lambda: route(*tables32, tok), 1)
+        name = "K2" if tok.dim() == 2 else "K5 + boundary rows + K2 chunks"
+        per_batch.append(f"{name} {tuple(tok.shape)} {ms:.2f} ms, vs plain "
+                         f"f64 on the card: loglik rel err {b_rel:.3g}, "
                          f"{grad_note(errs, medians)}")
     plain_s = time.perf_counter() - t0
     (g_ref,) = torch.autograd.grad((a, bfull, pi), vec, sums)
@@ -1131,14 +1246,16 @@ def phase_cli_grad(card, dev, workdir, cli):
     print(f"{card} | phase 4 optimize CLI 3x3 default (L-BFGS-B, exact "
           f"gradients): {n_eval} evaluations in {cli_s:.2f} s "
           f"({cli_s / n_eval:.3f} s/eval), K2 calls {calls} = {n_eval} x "
-          f"{cli['per_eval']}, K1 launches {k1_launches}, K5 launches "
-          f"{k5_launches}, best loglik "
+          f"{cli['per_eval']} (the long block's: {chunk_calls[0]} chunk "
+          f"windows with boundary rows), K1 launches {k1_launches}, K5 "
+          f"launches {k5_launches} = {n_eval} x {n_long}, best loglik "
           f"{best_ll:.6f}; eval 0 vs plain f64 loglik rel err {rel:.3g} "
           f"(rtol 1e-6), gradient rel err per parameter "
           f"{', '.join(f'{e:.2g}' for e in g_rel)} (rtol 2e-3, against the "
-          f"plain f64 version on every batch, {plain_s:.1f} s); K2 per "
-          f"evaluation: {'; '.join(per_batch)}")
-    return calls, out + ".best_model.yaml"
+          f"plain f64 version on every batch, the long block walked as one "
+          f"window on the CPU, {plain_s:.1f} s); per evaluation: "
+          f"{'; '.join(per_batch)}")
+    return calls, k5_launches, out + ".best_model.yaml"
 
 
 def phase_genome(card, dev):
@@ -1686,6 +1803,124 @@ def phase_long_value(card, dev, cli):
           + "; ".join(parts) + "; " + ", ".join(breakeven))
 
 
+def phase_long_grad(card, dev, cli):
+    """A long block's value and exact gradient through the chunk route (K5,
+    the boundary rows, one K2 call over the chunks) on f32 tables, against
+    the same route's plain version in f64 on the card on the same f32
+    tables (and, without a gate, on the f64 tables: the f32 rounding of the
+    tables' own part), on phase 3's 320 kb block and 1e7 simulated columns
+    at 3x3 and a simulated 320 kb block at 7x7, with its milliseconds and
+    peak device memory; on the 3x3 320 kb block, K2's one-window walk timed
+    beside it.  Then the chunk length: on the 320 kb blocks, the route (its
+    second call) and K5, the boundary rows and K2 timed apart at each of
+    GRAD_CHUNKS."""
+    import torch
+
+    from itrails_tpu_torch.data.tokens import PAD_TOKEN
+    from itrails_tpu_torch.hmm import cuda_fwd, cuda_grad, cuda_longseq, longseq
+
+    (block,) = [v for v in cli["v_lst"] if len(v) == LONG_BLOCK]
+    cases = [("3x3 320 kb block of phase 3", 3, 3,
+              torch.as_tensor(block, device=dev)),
+             ("7x7 320 kb", 7, 7, simulated_block(dev, 7, 7, 15)),
+             ("3x3 1e7 columns", 3, 3, simulated_block(dev, 3, 3, 16, LONG_SIM))]
+    parts, sweep = [], []
+    for label, n_ab, n_abc, tok in cases:
+        a, bfull, pi, _ = build_tables(n_ab, n_abc, dev)
+        tables = [x.contiguous() for x in (a, bfull, pi)]
+        tables32 = [x.float().contiguous() for x in tables]
+        m = a.shape[0]
+        (ll_ref, g_ref), plain_ms = timed(
+            lambda: longseq.forward_loglik_long_and_grads_plain(
+                *(x.double() for x in tables32), tok))
+        ll64, g64 = longseq.forward_loglik_long_and_grads_plain(*tables, tok)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        k5, k2 = (cuda_longseq.chunk_operators_fused.launches,
+                  cuda_grad.loglik_and_grads_fused.calls)
+        (ll, grads), ms = timed(
+            lambda: longseq.forward_loglik_long_and_grads(*tables32, tok))
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        check((cuda_longseq.chunk_operators_fused.launches - k5,
+               cuda_grad.loglik_and_grads_fused.calls - k2) == (1, 1),
+              f"{label}: the route did not launch K5 once and call K2 once")
+        rel = abs(float(ll) - float(ll_ref)) / abs(float(ll_ref))
+        errs, medians, ok = grad_errors(grads, g_ref)
+        check(ll.dtype == torch.float64 and rel <= LONG_RTOL and ok,
+              f"{label}: the route off the f64 plain route: loglik "
+              f"{rel:.3g} (rtol {LONG_RTOL:g}), {grad_note(errs, medians)}")
+        ms_again = timed(
+            lambda: longseq.forward_loglik_long_and_grads(*tables32, tok))[1]
+        rel64 = abs(float(ll) - float(ll64)) / abs(float(ll64))
+        errs64, _, _ = grad_errors(grads, g64)
+        bound_ms, bound_by = k2_bound_ms(m, tok[None])
+        line = (f"{label} (M={m}, {len(tok)} columns, chunk "
+                f"{longseq.GRAD_CHUNK}): route {ms:.3f} / {ms_again:.3f} ms "
+                f"(first / second call; K2's function's bound {bound_ms:.4f} "
+                f"ms, {bound_by}), loglik {float(ll):.6f} rel err "
+                f"{rel:.3g}, {grad_note(errs, medians)} (against the f64 "
+                f"tables, no gate: loglik {rel64:.3g}, gradients "
+                f"{' / '.join(f'{e:.3g}' for e in errs64)}), peak device "
+                f"memory {peak} bytes; f64 plain route {plain_ms:.1f} ms")
+        if len(tok) == LONG_BLOCK and m == 27:
+            (ll1, g1), one_ms = timed(
+                lambda: cuda_grad.loglik_and_grads_fused(*tables32, tok[None]))
+            rel1 = abs(float(ll1) - float(ll_ref)) / abs(float(ll_ref))
+            errs1, _, _ = grad_errors(g1, g_ref)
+            line += (f"; K2 one window {one_ms:.3f} ms (loglik rel err "
+                     f"{rel1:.3g}, dA / dbfull / dpi max rel err "
+                     f"{' / '.join(f'{e:.3g}' for e in errs1)}), "
+                     f"{one_ms / ms_again:.1f}x the route")
+        parts.append(line)
+        if len(tok) != LONG_BLOCK:
+            continue
+        _, al0, _ = cuda_fwd.column0(tables32[1], tables32[2], tok[:1])
+        for chunk in GRAD_CHUNKS:
+            def route():
+                return longseq.forward_loglik_long_and_grads(*tables32, tok,
+                                                             chunk=chunk)
+
+            ll_r, g_r = route()
+            route_ms = timed(route)[1]
+            rel_r = abs(float(ll_r) - float(ll_ref)) / abs(float(ll_ref))
+            errs_r, medians_r, ok_r = grad_errors(g_r, g_ref)
+            check(rel_r <= LONG_RTOL and ok_r,
+                  f"{label} chunk {chunk}: off the f64 plain route: loglik "
+                  f"{rel_r:.3g}, {grad_note(errs_r, medians_r)}")
+            n_chunks = -(-(len(tok) - 1) // chunk)
+            stream = longseq.chunk_matrix(tok, 0, n_chunks, chunk)
+            (ops, _), k5_ms = timed(
+                lambda: cuda_longseq.chunk_operators_fused(*tables32[:2], stream))
+
+            def rows():
+                alpha, beta = longseq.boundary_rows(ops, al0[0],
+                                                    torch.ones_like(al0[0]))
+                pad = torch.full((n_chunks, 1), PAD_TOKEN, dtype=tok.dtype,
+                                 device=dev)
+                return (torch.cat([pad, stream], dim=1), alpha.float(),
+                        beta.float())
+
+            (windows, alpha, beta), rows_ms = timed(rows)
+            _, k2_ms = timed(
+                lambda: cuda_grad.loglik_and_grads_fused(
+                    *tables32, windows, entry_alpha=alpha, exit_beta=beta))
+            del ops, windows, alpha, beta
+            sweep.append(f"{label} M={m} L={chunk} C={n_chunks}: K5 "
+                         f"{k5_ms:.3f} + boundary rows {rows_ms:.3f} + K2 "
+                         f"{k2_ms:.3f} = {k5_ms + rows_ms + k2_ms:.3f} ms, "
+                         f"route {route_ms:.3f} ms, loglik rel err "
+                         f"{rel_r:.3g}, gradients max rel err "
+                         f"{max(errs_r):.3g}")
+    print(f"{card} | phase 11 long-block gradient, the chunk route on f32 "
+          f"tables against its plain version in f64 on the same tables on "
+          f"the card (loglik rtol "
+          f"{LONG_RTOL:g}, every gradient entry rtol {GRAD_RTOL:g}): "
+          + "; ".join(parts))
+    print(f"{card} | phase 11 chunk length, the route's second call and "
+          f"each stage timed alone after it (CUDA events, one call each): "
+          + "; ".join(sweep))
+
+
 def main():
     import torch
 
@@ -1719,6 +1954,8 @@ def run_phases(card, dev, t_start):
           for seed, shape in enumerate(K1_SHAPES)]
     k2 = [phase_k2(card, dev, *shape, seed=seed, reps=10, k1_ms=rec["ms"])
           for seed, (shape, rec) in enumerate(zip(K1_SHAPES, k1))]
+    for seed, (label, n_ab, n_abc, _, _) in enumerate(K1_SHAPES):
+        phase_k2_chunks(card, dev, label, n_ab, n_abc, seed=20 + seed, reps=10)
     k3 = [phase_k3(card, dev, *shape, seed=seed, reps=10)
           for seed, shape in enumerate(K1_SHAPES)]
     phase_k3(card, dev, "3x3", 3, 3, *TIE_SHAPE, seed=5, reps=2, tie=True)
@@ -1729,8 +1966,8 @@ def run_phases(card, dev, t_start):
           for seed, (label, n_ab, n_abc, _, _) in enumerate(K1_SHAPES)]
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
-        k1_launches, k5_launches, cli = phase_cli(card, dev, work)
-        k2_calls, best_yaml = phase_cli_grad(card, dev, work, cli)
+        k1_launches, _, cli = phase_cli(card, dev, work)
+        k2_calls, k5_launches, best_yaml = phase_cli_grad(card, dev, work, cli)
         phase_genome(card, dev)
         phase_cli_fd(card, dev, work, cli)  # its CPU run started in phase 3
         k3_launches = phase_viterbi_cli(card, dev, work, cli, best_yaml)
@@ -1739,13 +1976,14 @@ def run_phases(card, dev, t_start):
                                                      best_yaml)
         phase_posterior_segmented(card, dev, cli, best_yaml, long_rows)
         phase_long_value(card, dev, cli)
+        phase_long_grad(card, dev, cli)
     print(f"{card} | all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     # each record at the genome-scale 3x3 shape of phase 2 (K1, K4 and K5
     # in f64, the CLIs' default; K5 on the 313 chunks of a 320 kb block);
-    # launches from the CLI run of its own path (K1 and K5: phase 3, K2:
-    # phase 4, where each K2 call launches its two kernels, K3: phase 6, two
-    # kernels a call, K4: phase 8, two kernels a call)
+    # launches from the CLI run of its own path (K1: phase 3, K2 and K5:
+    # phase 4, the main path, where each K2 call launches its two kernels,
+    # K3: phase 6, two kernels a call, K4: phase 8, two kernels a call)
     record = {"kernels": [{
         "name": "k1_forward",
         "route": "cuda",

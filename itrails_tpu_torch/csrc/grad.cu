@@ -16,6 +16,9 @@
 //
 // Every per-step normalization cancels inside Z_t, so no log bookkeeping
 // is needed.  A PAD token (-1) leaves alpha, beta and the sums unchanged.
+// Beta at column T-1 is ones, or a given exit row per window: a window
+// that is one chunk of a long block then ends where the rest of the block
+// begins (the wrapper likewise starts its forward from a given entry row).
 // Outputs: the per-window loglik (W,) in f64 (K1's compensated sum), beta
 // at the origin (W, 32*S), and per-block partial sums of dA (G, 32*S, 32*S)
 // and dB (G, 625, 32*S); the wrapper sums the partials over blocks in a
@@ -51,8 +54,10 @@
 // per column) and the checkpoint's traffic (0.27 GB written and read back
 // at M = 27), in exchange for storing alpha once per chunk instead of once
 // per column.  Like K1 the recurrence
-// is sequential in t, so its parallelism is across windows; a single long
-// window gets one warp.
+// is sequential in t, so its parallelism is across windows.  A long block
+// is therefore never one window here: hmm/longseq.py cuts it into chunk
+// windows with boundary rows from K5's transfer operators, one warp a
+// chunk.
 //
 // Design (simple and exact first): the product forms of K1 (Mat: for
 // M <= 32 each lane keeps its column and its row of a in registers; above
@@ -76,12 +81,16 @@ struct Bwd {
   static constexpr int kChunk = S == 1 ? 16 : 8;
 };
 
-template <int S>
+// kExit: beta at column T-1 is read from beta_in (a window that is one
+// chunk of a long block); otherwise it is ones and beta_in is not read, so
+// the bucket's instantiation is the kernel it was before exit rows existed.
+template <int S, bool kExit>
 __global__ void __launch_bounds__(Bwd<S>::kWarps * 32)
 k2_backward_kernel(const float* __restrict__ a,     // (M, M) row-major
                    const float* __restrict__ bt,    // (625, 32*S), zero pad
                    const float* __restrict__ chk,   // (n_chunks, W, 32*S)
                    const int* __restrict__ tokens,  // (W, T), PAD = -1
+                   const float* __restrict__ beta_in,  // (W, M), kExit
                    float* __restrict__ beta0,       // (W, 32*S)
                    float* __restrict__ da_part,     // (G, 32*S, 32*S), zeros
                    float* __restrict__ db_part,     // (G, 625, 32*S), zeros
@@ -113,9 +122,15 @@ k2_backward_kernel(const float* __restrict__ a,     // (M, M) row-major
   float* q_rows = s_q + warp * ROWS;
   int* toks = s_tok + warp * TC;
   const int* row = tokens + static_cast<size_t>(live ? w : 0) * T;
-  float beta[S];
+  float beta[S];  // beta at column T-1
 #pragma unroll
-  for (int k = 0; k < S; ++k) beta[k] = lane + 32 * k < M ? 1.f : 0.f;
+  for (int k = 0; k < S; ++k) {
+    const int j = lane + 32 * k;
+    if constexpr (kExit)
+      beta[k] = j < M && live ? beta_in[static_cast<size_t>(w) * M + j] : 0.f;
+    else
+      beta[k] = j < M ? 1.f : 0.f;
+  }
 
   for (int c = n_chunks - 1; c >= 0; --c) {
     if (lane < TC) {
@@ -238,14 +253,16 @@ size_t backward_smem() {
 
 template <int S>
 int launch_k2(const float* a, const float* bt, const float* al0,
-              const float* ll0, const int* tokens, float* chk, double* ll_out,
-              float* beta0, float* da_part, float* db_part, int W, int T,
-              int M, cudaStream_t stream) {
+              const float* ll0, const int* tokens, const float* beta_in,
+              float* chk, double* ll_out, float* beta0, float* da_part,
+              float* db_part, int W, int T, int M, cudaStream_t stream) {
   const size_t fsm = forward_smem<S>();
   const size_t bsm = backward_smem<S>();
   constexpr int TC = Bwd<S>::kChunk;
   cudaError_t err = allow_smem(forward_kernel<S, TC, float, false>, fsm);
-  if (err == cudaSuccess) err = allow_smem(k2_backward_kernel<S>, bsm);
+  if (err == cudaSuccess)
+    err = beta_in != nullptr ? allow_smem(k2_backward_kernel<S, true>, bsm)
+                             : allow_smem(k2_backward_kernel<S, false>, bsm);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_chunks = (T - 1 + TC - 1) / TC;
   forward_kernel<S, TC, float, false>
@@ -254,8 +271,15 @@ int launch_k2(const float* a, const float* bt, const float* al0,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   constexpr int NW = Bwd<S>::kWarps;
-  k2_backward_kernel<S><<<(W + NW - 1) / NW, NW * 32, bsm, stream>>>(
-      a, bt, chk, tokens, beta0, da_part, db_part, W, T, M, n_chunks);
+  const dim3 grid((W + NW - 1) / NW);
+  if (beta_in != nullptr)
+    k2_backward_kernel<S, true><<<grid, NW * 32, bsm, stream>>>(
+        a, bt, chk, tokens, beta_in, beta0, da_part, db_part, W, T, M,
+        n_chunks);
+  else
+    k2_backward_kernel<S, false><<<grid, NW * 32, bsm, stream>>>(
+        a, bt, chk, tokens, nullptr, beta0, da_part, db_part, W, T, M,
+        n_chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -284,18 +308,19 @@ int k2_blocks(int W, int M) {
 }
 
 int k2_loglik_and_grads(const float* a, const float* bt, const float* al0,
-                        const float* ll0, const int* tokens, float* chk,
-                        double* ll_out, float* beta0, float* da_part,
-                        float* db_part, int W, int T, int M, void* stream) {
+                        const float* ll0, const int* tokens,
+                        const float* beta_in, float* chk, double* ll_out,
+                        float* beta0, float* da_part, float* db_part, int W,
+                        int T, int M, void* stream) {
   if (W < 1 || T < 1 || M < 1 || M > 32 * kGradMaxS)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((M + 31) / 32) {
-    case 1: return launch_k2<1>(a, bt, al0, ll0, tokens, chk, ll_out, beta0, da_part, db_part, W, T, M, s);
-    case 2: return launch_k2<2>(a, bt, al0, ll0, tokens, chk, ll_out, beta0, da_part, db_part, W, T, M, s);
-    case 3: return launch_k2<3>(a, bt, al0, ll0, tokens, chk, ll_out, beta0, da_part, db_part, W, T, M, s);
-    case 4: return launch_k2<4>(a, bt, al0, ll0, tokens, chk, ll_out, beta0, da_part, db_part, W, T, M, s);
-    default: return launch_k2<5>(a, bt, al0, ll0, tokens, chk, ll_out, beta0, da_part, db_part, W, T, M, s);
+    case 1: return launch_k2<1>(a, bt, al0, ll0, tokens, beta_in, chk, ll_out, beta0, da_part, db_part, W, T, M, s);
+    case 2: return launch_k2<2>(a, bt, al0, ll0, tokens, beta_in, chk, ll_out, beta0, da_part, db_part, W, T, M, s);
+    case 3: return launch_k2<3>(a, bt, al0, ll0, tokens, beta_in, chk, ll_out, beta0, da_part, db_part, W, T, M, s);
+    case 4: return launch_k2<4>(a, bt, al0, ll0, tokens, beta_in, chk, ll_out, beta0, da_part, db_part, W, T, M, s);
+    default: return launch_k2<5>(a, bt, al0, ll0, tokens, beta_in, chk, ll_out, beta0, da_part, db_part, W, T, M, s);
   }
 }
 

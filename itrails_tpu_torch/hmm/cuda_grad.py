@@ -17,6 +17,13 @@ Column 0 (``pi`` and its emission) is done here, in torch, from beta at the
 origin, as ``pallas_grad.py:307-321`` does: ``dpi`` is not masked for an
 all-PAD window, which contributes ``log(sum(pi))`` to the value.
 
+A window may also be one chunk of a long block (``hmm/longseq.py``): with
+``entry_alpha`` every window's column 0 is no emission (its token is not
+read), the forward starts from the window's given row, normalized, and
+the window adds nothing to the value, ``dpi`` or column 0's ``dbfull``;
+with ``exit_beta`` the reverse sweep starts from the window's given row,
+normalized, instead of ones.
+
 :func:`loglik_and_grads_fused` launches K2 for tensors on a CUDA device and
 runs :func:`loglik_and_grads_plain` only for tensors on the CPU; a CUDA
 input that the kernel does not take raises.  The kernel's per-block
@@ -32,9 +39,11 @@ import torch
 
 from itrails_tpu_torch.data.tokens import N_TOKENS, PAD_TOKEN
 from itrails_tpu_torch.hmm._build import BUILD_DIR, CSRC, compile_library
-from itrails_tpu_torch.hmm.cuda_fwd import check_inputs, column0, emission_rows
+from itrails_tpu_torch.hmm.cuda_fwd import (check_inputs, check_state, column0,
+                                            emission_rows)
 
-__all__ = ["build", "loglik_and_grads_fused", "loglik_and_grads_plain"]
+__all__ = ["build", "column0_grads", "loglik_and_grads_fused",
+           "loglik_and_grads_plain"]
 
 _SRC = CSRC / "grad.cu"
 _TINY = 1e-30  # the clamp of every normalizer in the reverse sweep
@@ -53,7 +62,7 @@ def _library():
         path, _ = build()
         lib = ctypes.CDLL(str(path))
         lib.k2_loglik_and_grads.restype = ctypes.c_int
-        lib.k2_loglik_and_grads.argtypes = ([ctypes.c_void_p] * 10
+        lib.k2_loglik_and_grads.argtypes = ([ctypes.c_void_p] * 11
                                             + [ctypes.c_int] * 3
                                             + [ctypes.c_void_p])
         for name, n_args in (("k2_table_width", 1), ("k2_max_states", 0),
@@ -67,7 +76,7 @@ def _library():
     return _lib
 
 
-def _column0_grads(e0, al0, s0, beta0, pi, tok0):
+def column0_grads(e0, al0, s0, beta0, pi, tok0):
     """``(dpi, dbfull of column 0)`` from beta at the origin (W, M):
     ``dpi_j = e0_j beta0_j / (Z0 s0)`` and
     ``dbfull[j, tok0] += pi_j beta0_j / (Z0 s0)`` for a token in the
@@ -81,17 +90,43 @@ def _column0_grads(e0, al0, s0, beta0, pi, tok0):
     return dpi, q0.T @ onehot.to(q0.dtype)
 
 
-def loglik_and_grads_plain(a, bfull, pi, tokens):
+def _normalized(rows):
+    """Boundary rows (W, M) divided by their sums (floored at 1e-30)."""
+    return (rows / rows.sum(dim=1, keepdim=True).clamp(min=_TINY)).contiguous()
+
+
+def _entry(bfull, pi, tokens, entry_alpha):
+    """Each window's alpha after column 0 (W, M) and its log-normalizer
+    (W,), and column 0's ``(e0, s0)``, or None with ``entry_alpha``."""
+    if entry_alpha is None:
+        e0, al0, s0 = column0(bfull, pi, tokens[:, 0])
+        return al0.contiguous(), torch.log(s0).contiguous(), (e0, s0)
+    al0 = _normalized(entry_alpha)
+    return al0, torch.zeros_like(al0[:, 0]), None
+
+
+def _grads(da, db, beta0, pi, tokens, al0, col0):
+    """``(dA, dbfull, dpi)`` from the columns' sums (dA (M, M), dB
+    (625, M)) and, unless the windows were entered with ``entry_alpha``,
+    column 0's terms from beta at the origin."""
+    if col0 is None:
+        return da, db.T, torch.zeros_like(pi)
+    e0, s0 = col0
+    dpi, db0 = column0_grads(e0, al0, s0, beta0, pi, tokens[:, 0])
+    return da, db.T + db0, dpi
+
+
+def loglik_and_grads_plain(a, bfull, pi, tokens, *, entry_alpha=None,
+                           exit_beta=None):
     """:func:`loglik_and_grads_fused` in plain PyTorch, in the dtype of
     ``a``: a forward pass that stores every alpha, then a beta sweep that
     accumulates dA, dbfull and dpi with the kernel's formulas (not autograd
     of the forward, so it holds the kernel's algebra independently).  The
-    CPU path and the reference the kernel is held against on the card."""
+    CPU path and the reference the kernel is held against on the card.
+    ``entry_alpha`` and ``exit_beta`` as for the kernel."""
     bt = bfull.T
-    tok0 = tokens[:, 0]
-    e0, al0, s0 = column0(bfull, pi, tok0)
+    al0, ll, col0 = _entry(bfull, pi, tokens, entry_alpha)
     al = al0
-    ll = torch.log(s0)
     alphas = []  # alphas[t - 1] = alpha before column t
     for t in range(1, tokens.shape[1]):
         alphas.append(al)
@@ -102,7 +137,7 @@ def loglik_and_grads_plain(a, bfull, pi, tokens):
         al = torch.where(pad[:, None], al, nx / s[:, None])
         ll = ll + torch.where(pad, torch.zeros_like(s), torch.log(s))
 
-    beta = torch.ones_like(al0)
+    beta = torch.ones_like(al0) if exit_beta is None else _normalized(exit_beta)
     da = torch.zeros_like(a)
     db = torch.zeros((N_TOKENS, a.shape[0]), dtype=a.dtype, device=a.device)
     for t in range(tokens.shape[1] - 1, 0, -1):
@@ -119,11 +154,12 @@ def loglik_and_grads_plain(a, bfull, pi, tokens):
         beta = torch.where(live[:, None],
                            nb / nb.sum(dim=1, keepdim=True).clamp(min=_TINY),
                            beta)
-    dpi, db0 = _column0_grads(e0, al0, s0, beta, pi, tok0)
-    return ll.to(torch.float64).sum(), (da, db.T + db0, dpi)
+    return (ll.to(torch.float64).sum(),
+            _grads(da, db, beta, pi, tokens, al0, col0))
 
 
-def loglik_and_grads_fused(a, bfull, pi, tokens):
+def loglik_and_grads_fused(a, bfull, pi, tokens, *, entry_alpha=None,
+                           exit_beta=None):
     """``(total loglik, (dA, dbfull, dpi))`` of a (W, T) token batch.
 
     Args:
@@ -131,6 +167,11 @@ def loglik_and_grads_fused(a, bfull, pi, tokens):
       bfull: (M, 625) emission table over the full alphabet.
       pi: (M,) initial distribution.
       tokens: (W, T) integer tokens, right-padded with PAD_TOKEN.
+      entry_alpha: None, or (W, M) alpha before column 1 of each window
+        (any positive scale): column 0 is then no emission and adds
+        nothing to the value, ``dpi`` or ``dbfull``.
+      exit_beta: None, or (W, M) beta at column T-1 of each window (any
+        positive scale) in place of ones.
 
     The total is float64, the per-window logliks summed in f64 (on CUDA
     each is K1's compensated sum, already f64).  On CUDA
@@ -138,7 +179,9 @@ def loglik_and_grads_fused(a, bfull, pi, tokens):
     are float32; on the CPU the plain version runs in the dtype of ``a``.
     """
     if tokens.device.type == "cpu":
-        return loglik_and_grads_plain(a, bfull, pi, tokens)
+        return loglik_and_grads_plain(a, bfull, pi, tokens,
+                                      entry_alpha=entry_alpha,
+                                      exit_beta=exit_beta)
     if tokens.device.type != "cuda":
         raise ValueError(f"loglik_and_grads_fused: unsupported device "
                          f"{tokens.device}")
@@ -148,16 +191,18 @@ def loglik_and_grads_fused(a, bfull, pi, tokens):
     dev = tokens.device
     w, t_len = tokens.shape
     m = a.shape[0]
+    for name, rows in (("entry_alpha", entry_alpha), ("exit_beta", exit_beta)):
+        if rows is not None:
+            check_state("loglik_and_grads_fused", name, rows, (w, m),
+                        torch.float32, dev)
     mp = lib.k2_table_width(m)
     n_chunks = -(-(t_len - 1) // lib.k2_chunk(m))
     n_blocks = lib.k2_blocks(w, m)
     f32 = {"dtype": torch.float32, "device": dev}
 
     with torch.cuda.device(dev):
-        tok0 = tokens[:, 0]
-        e0, al0, s0 = column0(bfull, pi, tok0)
-        al0 = al0.contiguous()
-        ll0 = torch.log(s0).contiguous()
+        al0, ll0, col0 = _entry(bfull, pi, tokens, entry_alpha)
+        beta_in = None if exit_beta is None else _normalized(exit_beta)
         bt = torch.zeros((N_TOKENS, mp), **f32)
         bt[:, :m] = bfull.T
         chk = torch.empty((n_chunks, w, mp), **f32)
@@ -168,17 +213,18 @@ def loglik_and_grads_fused(a, bfull, pi, tokens):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.k2_loglik_and_grads(
             a.data_ptr(), bt.data_ptr(), al0.data_ptr(), ll0.data_ptr(),
-            tokens.data_ptr(), chk.data_ptr(), ll.data_ptr(),
+            tokens.data_ptr(),
+            None if beta_in is None else beta_in.data_ptr(),
+            chk.data_ptr(), ll.data_ptr(),
             beta0.data_ptr(), da_part.data_ptr(), db_part.data_ptr(),
             w, t_len, m, stream)
         if rc != 0:
             raise RuntimeError("K2 launch failed: "
                                f"{lib.k2_error_string(rc).decode()} ({rc})")
         loglik_and_grads_fused.calls += 1
-        da = da_part.sum(dim=0)[:m, :m]
-        db = db_part.sum(dim=0)[:, :m]
-        dpi, db0 = _column0_grads(e0, al0, s0, beta0[:, :m], pi, tok0)
-    return ll.to(torch.float64).sum(), (da, db.T + db0, dpi)
+        grads = _grads(da_part.sum(dim=0)[:m, :m], db_part.sum(dim=0)[:, :m],
+                       beta0[:, :m], pi, tokens, al0, col0)
+    return ll.sum(), grads
 
 
 # K2 calls since the last reset to 0; each call launches two kernels

@@ -2,10 +2,14 @@
 
 The JAX package differentiates a checkpointed scan of the forward pass
 (``itrails_tpu/hmm/grad.py:forward_loglik_remat``) and, on the TPU, calls
-its fused gradient kernels instead.  Here the decode's value and gradient
-with respect to ``(a, bfull, pi)`` always come from kernel K2
-(``hmm/cuda_grad.py``) on the card and from its plain version on the CPU,
-and :class:`LoglikFn` hands them to torch autograd, which carries them back
+its fused gradient kernels instead; a long block it differentiates through
+``itrails_tpu/hmm/longseq.py:forward_loglik_long_remat``.  Here the
+decode's value and gradient with respect to ``(a, bfull, pi)`` come from
+kernel K2 (``hmm/cuda_grad.py``) for a (W, T) window batch, and from the
+sequence-parallel route ``hmm/longseq.py:forward_loglik_long_and_grads``
+(K5's transfer operators, then one K2 call over the block's chunks) for a
+long block, on the card, and from their plain versions on the CPU.
+:class:`LoglikFn` hands them to torch autograd, which carries them back
 through the f64 model build to the demographic parameters.
 """
 
@@ -13,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from itrails_tpu_torch.hmm import cuda_grad
+from itrails_tpu_torch.hmm import cuda_grad, longseq
 
 __all__ = ["LoglikFn"]
 
@@ -22,16 +26,20 @@ class LoglikFn(torch.autograd.Function):
     """Total log-likelihood (f64) of token batches as a function of the
     decode tables ``(a, bfull, pi)``, differentiable in those tables.
 
-    The forward sums every batch's value in f64 and its gradients (K2
-    computes both at once) and keeps the summed gradients; the backward
-    scales them by the incoming gradient.  Only first derivatives exist."""
+    Each of ``batches`` is a (W, T) window batch, which one K2 call takes,
+    or a 1-D long block, which the long-block route takes.  The forward
+    sums every batch's value in f64 and its gradients (each route computes
+    both at once) and keeps the summed gradients; the backward scales them
+    by the incoming gradient.  Only first derivatives exist."""
 
     @staticmethod
     def forward(ctx, a, bfull, pi, *batches):
         total = torch.zeros((), dtype=torch.float64, device=a.device)
         grads = [torch.zeros_like(x, dtype=torch.float64) for x in (a, bfull, pi)]
         for tokens in batches:
-            value, parts = cuda_grad.loglik_and_grads_fused(a, bfull, pi, tokens)
+            route = (longseq.forward_loglik_long_and_grads if tokens.dim() == 1
+                     else cuda_grad.loglik_and_grads_fused)
+            value, parts = route(a, bfull, pi, tokens)
             total = total + value
             for acc, g in zip(grads, parts):
                 acc += g

@@ -1,5 +1,5 @@
-"""Sequence-parallel forward log-likelihood of one long block (the value
-path of ``itrails_tpu/hmm/longseq.py``).
+"""Sequence-parallel forward log-likelihood of one long block and its exact
+gradient (``itrails_tpu/hmm/longseq.py``).
 
 The forward recurrence is sequential in the column, so one long block
 walked as a one-window batch keeps one warp of the card busy.  Written as
@@ -15,6 +15,18 @@ to the chunk's length.
 The log-normalizer is carried in f64 from end to end: K5's per-chunk log
 scales, each product's log scale and the final log.  A chromosome-scale
 block reaches ~1e8 nats, where one f32 ulp is 8 nats.
+
+:func:`forward_loglik_long_and_grads` gives the value and its exact
+gradient in ``(a, bfull, pi)``, the contract of
+``jax.value_and_grad(itrails_tpu.hmm.longseq.forward_loglik_long_remat)``.
+The gradient is a sum over columns of terms that need only alpha before
+the column and beta at it, so each chunk is an ordinary window of kernel
+K2 (``hmm/cuda_grad.py``) once alpha at its entry and beta at its exit
+are known.  Those come from K5's operators: ``alpha_c ~ alpha_0 G_0 ...
+G_{c-1}`` and ``beta_c ~ G_{c+1} ... G_{C-1} 1``, exclusive prefix and
+suffix products read from one tree of pairwise products in f64.  Every
+chunk then goes through one K2 call as a (C, chunk + 1) batch: the
+sequential depth is the chunk's length, and the card runs a warp a chunk.
 """
 
 from __future__ import annotations
@@ -22,14 +34,25 @@ from __future__ import annotations
 import torch
 
 from itrails_tpu_torch.data.tokens import PAD_TOKEN
-from itrails_tpu_torch.hmm import cuda_fwd, cuda_longseq
+from itrails_tpu_torch.hmm import cuda_fwd, cuda_grad, cuda_longseq
 from itrails_tpu_torch.hmm.cuda_longseq import chunk_operators
 
-__all__ = ["CHUNK", "OPERATOR_BUDGET_BYTES", "chunk_operators",
-           "forward_loglik_long", "forward_loglik_long_plain"]
+__all__ = ["CHUNK", "GRAD_CHUNK", "OPERATOR_BUDGET_BYTES", "boundary_rows",
+           "chunk_matrix", "chunk_operators", "forward_loglik_long",
+           "forward_loglik_long_and_grads",
+           "forward_loglik_long_and_grads_plain", "forward_loglik_long_plain"]
 
-# Columns of one chunk: the JAX engine's (itrails_tpu/optim/optimizer.py:66).
+# Columns of one chunk of the value path: the JAX engine's
+# (itrails_tpu/optim/optimizer.py:66).
 CHUNK = 1024
+# Columns of one chunk of the gradient route, K5's chunk and K2's window.
+# chip_smoke.py's phase 11 times the route on a 320 kb block at 256, 512
+# and 1,024 columns; in two runs on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md): 94.5 / 95.2 / 113.0 and 94.4 / 95.9 / 113.1 ms at M = 133,
+# where K5 fills the card's SMs better with more chunks, and 6.94 / 5.81 /
+# 7.70 and 8.00 / 7.87 / 7.96 ms at M = 27, within the runs' spread (the
+# host's launches of the boundary rows' small products).
+GRAD_CHUNK = 512
 # Bytes of the (C_g, M, M) operators of one group of chunks, built and folded
 # before the next group is built: 368,224 chunks (377 M columns) at M = 27,
 # 15,175 chunks (15.5 M columns) at M = 133 in float32, half as many in
@@ -101,10 +124,32 @@ def forward_loglik_long_plain(a, bfull, pi, tokens, *, chunk: int = CHUNK):
     """:func:`forward_loglik_long` with the operators of K5's plain version
     on the tables' device and dtype: the reference the K5 route is held
     against on the card."""
-    def plain(a, bfull, stream):
-        return chunk_operators(a, bfull, stream.reshape(-1), stream.shape[1])
+    return _forward_loglik_long(_plain_operators, a, bfull, pi, tokens, chunk)
 
-    return _forward_loglik_long(plain, a, bfull, pi, tokens, chunk)
+
+def _plain_operators(a, bfull, stream):
+    """K5's plain version with the wrapper's signature, on any device."""
+    return chunk_operators(a, bfull, stream.reshape(-1), stream.shape[1])
+
+
+def chunk_matrix(tokens, lo, hi, chunk):
+    """Chunks ``lo`` to ``hi`` of a block's columns 1..T-1 as a
+    (hi - lo, chunk) token matrix, the last chunk right-padded with PAD."""
+    cols = tokens[1 + lo * chunk:1 + hi * chunk]
+    if cols.shape[0] < (hi - lo) * chunk:  # the last chunk's PAD tail
+        tail = torch.full(((hi - lo) * chunk - cols.shape[0],), PAD_TOKEN,
+                          dtype=cols.dtype, device=cols.device)
+        cols = torch.cat([cols, tail])
+    return cols.view(hi - lo, chunk)
+
+
+def _groups(t_len, m, size, chunk):
+    """``(lo, hi)`` chunk ranges of a block's columns 1..T-1 whose (M, M)
+    operators of ``size`` bytes an entry fit OPERATOR_BUDGET_BYTES."""
+    n_chunks = -(-(t_len - 1) // chunk)
+    per_group = max(1, OPERATOR_BUDGET_BYTES // (m * m * size))
+    return [(lo, min(n_chunks, lo + per_group))
+            for lo in range(0, n_chunks, per_group)]
 
 
 def _forward_loglik_long(operators, a, bfull, pi, tokens, chunk):
@@ -113,18 +158,144 @@ def _forward_loglik_long(operators, a, bfull, pi, tokens, chunk):
     alpha0 = (pi * cuda_fwd.emission_rows(bfull.T, tokens[:1])[0]).double()
     if t_len == 1:
         return torch.log(alpha0.sum())
-    n_chunks = -(-(t_len - 1) // chunk)
-    per_group = max(1, OPERATOR_BUDGET_BYTES // (m * m * a.element_size()))
     prod = None
-    for lo in range(0, n_chunks, per_group):
-        hi = min(n_chunks, lo + per_group)
-        cols = tokens[1 + lo * chunk:1 + hi * chunk]
-        if cols.shape[0] < (hi - lo) * chunk:  # the last chunk's PAD tail
-            tail = torch.full(((hi - lo) * chunk - cols.shape[0],), PAD_TOKEN,
-                              dtype=cols.dtype, device=cols.device)
-            cols = torch.cat([cols, tail])
+    for lo, hi in _groups(t_len, m, a.element_size(), chunk):
         group = _group_product(operators, a, bfull,
-                               cols.view(hi - lo, chunk))
+                               chunk_matrix(tokens, lo, hi, chunk))
         prod = group if prod is None else _combine(prod, group)
     g, z = prod
     return torch.log((alpha0 @ g).sum()) + z
+
+
+def _unit(v):
+    """Rows of ``v`` divided by their sums (floored at the dtype's tiny)."""
+    return v / v.sum(dim=-1, keepdim=True).clamp(min=torch.finfo(v.dtype).tiny)
+
+
+def boundary_rows(ops, entry, exit_):
+    """Alpha at every chunk's entry and beta at every chunk's exit, in f64,
+    each row summing to 1.
+
+    ``ops`` (C, M, M) are the chunks' transfer operators G_c (any scale,
+    any float dtype); ``entry`` (M,) is alpha before chunk 0 and ``exit_``
+    (M,) beta after chunk C-1.  Returns ``(alpha, beta)``, both (C, M):
+    ``alpha[c] ~ entry G_0 ... G_{c-1}`` and ``beta[c] ~ G_{c+1} ... G_{C-1}
+    exit_``.  One tree of pairwise products (node i of a level is the
+    product of nodes 2i and 2i+1 of the level below, an odd last node
+    passing up alone), each divided by its max entry, then one pass down
+    it: a left child enters where its parent enters and a right child after
+    its left sibling; a right child exits where its parent exits and a left
+    child before its right sibling.  log2(C) levels of batched products;
+    the levels above ``ops`` hold about C f64 operators in all."""
+    levels = [ops]
+    while levels[-1].shape[0] > 1:
+        g = levels[-1]
+        n = g.shape[0]
+        even = n - n % 2
+        p = g[0:even:2].double() @ g[1:even:2].double()
+        if n % 2:
+            p = torch.cat([p, g[-1:].double()])
+        levels.append(_normalize_(p)[0])
+    alpha = _unit(entry.double())[None]
+    beta = _unit(exit_.double())[None]
+    for g in reversed(levels[:-1]):
+        n, m = g.shape[0], g.shape[1]
+        half = n // 2
+        al = torch.empty((n, m), dtype=torch.float64, device=g.device)
+        be = torch.empty_like(al)
+        al[0::2] = alpha
+        al[1::2] = _unit((alpha[:half, None, :] @ g[0:2 * half:2].double())[:, 0])
+        be[1::2] = beta[:half]
+        be[0:2 * half:2] = _unit((g[1:2 * half:2].double()
+                                  @ beta[:half, :, None])[..., 0])
+        if n % 2:
+            be[-1] = beta[-1]
+        alpha, beta = al, be
+    return alpha, beta
+
+
+def forward_loglik_long_and_grads(a, bfull, pi, tokens, *, chunk=None):
+    """``(value, (dA, dbfull, dpi))`` of one block, a 1-D token tensor,
+    sequence-parallel: the contract of ``jax.value_and_grad(
+    itrails_tpu.hmm.longseq.forward_loglik_long_remat, argnums=(0, 1, 2))``
+    (``itrails_tpu/hmm/longseq.py:206``).
+
+    Columns 1..T-1 are cut into chunks of ``chunk`` columns (default
+    GRAD_CHUNK), the last right-padded with PAD.  K5 builds the chunks'
+    operators, :func:`boundary_rows` reads alpha at each chunk's entry
+    (from ``alpha_0 = pi * e(tok_0)``) and beta at its exit (from ones),
+    and one K2 call takes every chunk as a window entered and left through
+    those rows.  Column 0 is done here: its log, and ``dpi`` and its
+    ``dbfull`` column from beta at the origin, ``G_0`` applied to chunk
+    0's exit row.
+
+    The value is column 0's log plus the chunks' f64 logliks from K2 (not
+    the f64 fold of the operators' log scales): those are the sums whose
+    gradient K2 returns, so the value and the gradient come from the same
+    recursion, and K2 gives them at no cost.  The chunks are taken in the
+    value path's groups, whose operators fit OPERATOR_BUDGET_BYTES; above
+    one group, a first pass keeps each group's product (K5, then a fold in
+    f64), the groups' entry and exit rows come from those, and each group's
+    operators are built again for its rows and its K2 call.  The device
+    then holds one group's operators, their tree of f64 products (about
+    four times their float32 bytes at most), K2's buffers for the group's
+    windows and O(C M) rows, whatever the block's length.
+
+    On the card K5 and K2 run in float32 (the tables must be contiguous
+    float32, the value is f64 and the gradients float32); on the CPU their
+    plain versions run in the dtype of ``a``."""
+    return _long_and_grads(cuda_longseq.chunk_operators_fused,
+                           cuda_grad.loglik_and_grads_fused, a, bfull, pi,
+                           tokens, GRAD_CHUNK if chunk is None else chunk)
+
+
+def forward_loglik_long_and_grads_plain(a, bfull, pi, tokens, *, chunk=None):
+    """:func:`forward_loglik_long_and_grads` with the plain versions of K5
+    and K2 on the tables' device and dtype: the reference the route is held
+    against on the card."""
+    return _long_and_grads(_plain_operators, cuda_grad.loglik_and_grads_plain,
+                           a, bfull, pi, tokens,
+                           GRAD_CHUNK if chunk is None else chunk)
+
+
+def _long_and_grads(operators, k2, a, bfull, pi, tokens, chunk):
+    t_len = tokens.shape[0]
+    if t_len == 1:
+        return k2(a, bfull, pi, tokens[None])
+    m = a.shape[0]
+    e0, al0, s0 = cuda_fwd.column0(bfull, pi, tokens[:1])
+    groups = _groups(t_len, m, a.element_size(), chunk)
+    # each group's entry and exit rows, from the groups' products
+    entries = [al0[0].double()]
+    exits = [torch.ones((m,), dtype=torch.float64, device=a.device)]
+    if len(groups) > 1:
+        prods = [_group_product(operators, a, bfull,
+                                chunk_matrix(tokens, lo, hi, chunk))[0]
+                 for lo, hi in groups]
+        for p in prods[:-1]:
+            entries.append(_unit(entries[-1] @ p))
+        for p in prods[:0:-1]:
+            exits.insert(0, _unit(p @ exits[0]))
+        del prods
+    total = torch.log(s0[0].double())
+    grads = [torch.zeros_like(x) for x in (a, bfull, pi)]
+    for (lo, hi), entry, exit_ in zip(groups, entries, exits):
+        stream = chunk_matrix(tokens, lo, hi, chunk)
+        ops, _ = operators(a, bfull, stream)
+        alpha, beta = boundary_rows(ops, entry, exit_)
+        if lo == 0:
+            origin = _unit(ops[0].double() @ beta[0])
+        del ops
+        pad = torch.full((hi - lo, 1), PAD_TOKEN, dtype=stream.dtype,
+                         device=stream.device)
+        ll, parts = k2(a, bfull, pi, torch.cat([pad, stream], dim=1),
+                       entry_alpha=alpha.to(a.dtype),
+                       exit_beta=beta.to(a.dtype))
+        total = total + ll
+        for acc, g in zip(grads, parts):
+            acc += g
+    dpi, db0 = cuda_grad.column0_grads(e0, al0, s0, origin[None].to(a.dtype),
+                                       pi, tokens[:1])
+    grads[1] += db0
+    grads[2] += dpi
+    return total, tuple(grads)

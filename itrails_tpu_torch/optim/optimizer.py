@@ -8,9 +8,11 @@ value-only evaluation is one launch of kernel K1 per length-class bucket
 on the card (its plain version on the CPU), plus, for each block above the
 long-block threshold, the sequence-parallel transfer-operator path with
 kernel K5 (``hmm/longseq.py``), both in the engine's ``dtype``; an
-exact-gradient evaluation is one call of kernel K2 per bucket and per long
-block, in float32 on the card, whose gradient torch autograd carries back
-through the f64 build to the parameters.
+exact-gradient evaluation is one call of kernel K2 per bucket and, per long
+block, K5's operators and one K2 call over the block's chunks
+(``longseq.forward_loglik_long_and_grads``), in float32 on the card, whose
+gradient torch autograd carries back through the f64 build to the
+parameters.
 
 Artifacts per evaluation match the reference: a row
 ``[n_eval, params..., loglik, seconds]`` appended to
@@ -63,8 +65,10 @@ class LoglikEngine:
       sequence-parallel transfer operators of
       ``longseq.forward_loglik_long``: K5 builds each chunk's operator on
       the card, and the log-normalizer is carried in f64;
-    - the exact gradient (:meth:`loglik_and_grad_fn`) still takes it as a
-      one-window batch of kernel K2; its operator path is later work.
+    - the exact gradient (:meth:`loglik_and_grad_fn`) takes it through
+      ``longseq.forward_loglik_long_and_grads``: K5's operators give alpha
+      at every chunk's entry and beta at its exit, and one K2 call takes
+      every chunk as a window, so a block is never one warp's walk.
 
     Both are exact (no splitting), so the total equals the single-batch
     log-likelihood up to float rounding; the per-batch totals are summed in
@@ -98,12 +102,10 @@ class LoglikEngine:
                 [v_lst[i] for i in idxs], pad_length_to=128)
             self.batches.append(torch.as_tensor(tokens, device=self.device))
         self.n_buckets = len(self.batches)
-        for i in long_idx:  # one-window batches: the gradient's route
-            self.batches.append(torch.as_tensor(
-                np.asarray(v_lst[i], np.int32)[None, :], device=self.device))
+        self.long_blocks = [torch.as_tensor(np.asarray(v_lst[i], np.int32),
+                                            device=self.device)
+                            for i in long_idx]
         self.n_long = len(long_idx)
-        # the value's route: the same tokens, as 1-D views
-        self.long_blocks = [tok[0] for tok in self.batches[self.n_buckets:]]
         self._builder = build_model_fn(n_int_AB, n_int_ABC, torch.float64,
                                        self.device)
         self._agg = torch.as_tensor(aggregation_matrix(), dtype=torch.float64,
@@ -133,7 +135,7 @@ class LoglikEngine:
         self._sync()
         t1 = time.perf_counter()
         total = torch.zeros((), dtype=torch.float64, device=self.device)
-        for tok in self.batches[:self.n_buckets]:
+        for tok in self.batches:
             total = total + decoders.forward_loglik_fast(a, bfull, pi, tok)
         for tok in self.long_blocks:
             total = total + longseq.forward_loglik_long(a, bfull, pi, tok)
@@ -150,11 +152,11 @@ class LoglikEngine:
         of the parameters are ``fixed_params``, resolved by ``resolver``
         (the case algebra, plain arithmetic that carries tensors).  The
         build runs in f64 as an autograd graph from ``vec``; the decode's
-        value and gradient in ``(a, bfull, pi)`` come from K2 per batch
-        (its plain version on the CPU) through :class:`LoglikFn`, a long
-        block still as a one-window K2 batch (not on the value's operator
-        path); autograd then carries them back through the decode-dtype
-        cast and the build.
+        value and gradient in ``(a, bfull, pi)`` come from K2 per bucket
+        and from the long-block route (K5, then one K2 call over its
+        chunks) per long block (their plain versions on the CPU) through
+        :class:`LoglikFn`; autograd then carries them back through the
+        decode-dtype cast and the build.
         The reference has no gradient path: its L-BFGS-B uses finite
         differences."""
         def f(vec_np):
@@ -167,7 +169,8 @@ class LoglikEngine:
             a, bfull, pi = self._tables(resolver(case, d), self.grad_dtype)
             self._sync()
             t1 = time.perf_counter()
-            total = LoglikFn.apply(a, bfull, pi, *self.batches)
+            total = LoglikFn.apply(a, bfull, pi, *self.batches,
+                                   *self.long_blocks)
             self._sync()
             t2 = time.perf_counter()
             (grad,) = torch.autograd.grad(total, vec)

@@ -120,7 +120,7 @@ def test_long_block_runs_on_the_operator_path(monkeypatch):
     v_lst = v_lst + [rng.integers(0, 625, size=700).astype(np.int32)]
     params = _resolved(1, 2)
     mine = LoglikEngine(v_lst, 1, 2, device="cpu", long_threshold=500)
-    assert mine.n_long == 1 and len(mine.batches) == mine.n_buckets + 1
+    assert mine.n_long == 1 and len(mine.batches) == mine.n_buckets
     assert mine.long_blocks[0].shape == (700,)
     seen = {"forward": [], "operators": []}
     forward, operators = cuda_fwd.forward_fused, cuda_longseq.chunk_operators_fused
@@ -273,10 +273,13 @@ def test_engine_gradient_matches_jax_engine_and_finite_differences(tag):
         np.testing.assert_allclose(g[k], fd, rtol=1e-3)
 
 
-def test_long_block_gradient_runs_as_a_one_window_batch():
-    """A block above the threshold takes the gradient path as its own
-    one-window batch and gives the gradient of the bucketed layout."""
+def test_long_block_gradient_runs_through_the_chunk_route(monkeypatch):
+    """A block above the threshold leaves the buckets on the gradient path
+    too: K5 builds its chunks' operators and one K2 call takes every chunk
+    as a window (no one-window batch of it), and the gradient is that of
+    the bucketed layout."""
     from itrails_tpu_torch.data.maf import maf_tokens
+    from itrails_tpu_torch.hmm import cuda_grad, cuda_longseq, longseq
     from itrails_tpu_torch.optim.cases import resolve_times
     from itrails_tpu_torch.optim.optimizer import LoglikEngine
 
@@ -286,9 +289,54 @@ def test_long_block_gradient_runs_as_a_one_window_batch():
     _, _, _, names, x0, fixed = _grad_case("1x2")
     case = frozenset(["t_1"])
     split = LoglikEngine(v_lst, 1, 2, device="cpu", long_threshold=500)
-    assert split.n_long == 1 and split.batches[-1].shape == (1, 700)
+    assert split.n_long == 1 and split.long_blocks[0].shape == (700,)
+    assert all(tok.shape[1] < 700 for tok in split.batches)
     whole = LoglikEngine(v_lst, 1, 2, device="cpu")
+    monkeypatch.setattr(longseq, "GRAD_CHUNK", 64)
+    seen = {"K2": [], "K5": []}
+    k2, k5 = cuda_grad.loglik_and_grads_fused, cuda_longseq.chunk_operators_fused
+
+    def spy_k2(a, bfull, pi, tokens, **rows):
+        seen["K2"].append((tuple(tokens.shape), sorted(rows)))
+        return k2(a, bfull, pi, tokens, **rows)
+
+    def spy_k5(a, bfull, stream):
+        seen["K5"].append(tuple(stream.shape))
+        return k5(a, bfull, stream)
+
+    monkeypatch.setattr(cuda_grad, "loglik_and_grads_fused", spy_k2)
+    monkeypatch.setattr(cuda_longseq, "chunk_operators_fused", spy_k5)
     ll, g = split.loglik_and_grad_fn(names, fixed, case, resolve_times)(x0)
+    assert seen["K5"] == [(11, 64)]
+    assert seen["K2"] == ([(tuple(tok.shape), []) for tok in split.batches]
+                          + [((11, 65), ["entry_alpha", "exit_beta"])])
     ll_w, g_w = whole.loglik_and_grad_fn(names, fixed, case, resolve_times)(x0)
     np.testing.assert_allclose(ll, ll_w, rtol=1e-12)
     np.testing.assert_allclose(g, g_w, rtol=1e-10)
+
+
+def test_engine_gradient_with_a_long_block_matches_jax_engine(monkeypatch):
+    """Value rtol 1e-10 and gradient rtol 1e-8 against the JAX engine with
+    the same threshold, which differentiates forward_loglik_long_remat for
+    the long block (both f64); the port's route cuts it into 47 chunks."""
+    from itrails_tpu.optim.cases import resolve_times as jax_resolve
+    from itrails_tpu.optim.optimizer import LoglikEngine as JaxEngine
+    from itrails_tpu_torch.hmm import longseq
+    from itrails_tpu_torch.optim.cases import resolve_times
+    from itrails_tpu_torch.optim.optimizer import LoglikEngine
+
+    rng = np.random.default_rng(8)
+    long_block = rng.integers(0, 625, size=3001).astype(np.int32)
+    v_lst, n_ab, n_abc, names, x0, fixed = _grad_case("1x2")
+    v_lst = v_lst + [long_block]
+    case = frozenset(["t_1"])
+    monkeypatch.setattr(longseq, "GRAD_CHUNK", 64)
+    engine = LoglikEngine(v_lst, n_ab, n_abc, device="cpu", long_threshold=500)
+    assert engine.n_long == 1
+    ll, g = engine.loglik_and_grad_fn(names, fixed, case, resolve_times)(x0)
+    ll_ref, g_ref = JaxEngine(v_lst, n_ab, n_abc, long_threshold=500
+                              ).loglik_and_grad_fn(names, fixed, case,
+                                                   jax_resolve)(x0)
+    assert np.isfinite(g).all()
+    np.testing.assert_allclose(ll, ll_ref, rtol=1e-10)
+    np.testing.assert_allclose(g, g_ref, rtol=1e-8)

@@ -14,7 +14,10 @@ Tolerances:
 * On the card, K2 in f32 against its plain version in f64: total rtol
   1e-6 (an f64 sum of f32 windows), gradients rtol 2e-3 on every entry with
   no absolute slack (each entry is a sum of non-negative terms, so none
-  cancels).
+  cancels); the same with entry and exit rows.
+* K2's plain version with entry and exit rows, on the pieces of a window
+  cut by hand, against the whole window in f64: rtol 1e-12 on the value
+  and every gradient entry.
 """
 
 import jax
@@ -103,6 +106,81 @@ def test_plain_k2_matches_pallas_interpret_in_f32(case, m, seed):
     assert all(g.dtype == torch.float32 for g in grads)
     np.testing.assert_allclose(float(ll), float(ll_ref), rtol=1e-4)
     _assert_grads([g.numpy() for g in grads], g_ref, rtol=2e-3)
+
+
+def _alpha_beta_at(a, bfull, pi, tok, k):
+    """Alpha after column k and beta at column k of one window (1-D tokens),
+    walked in plain f64 numpy with PAD columns as the identity."""
+    from itrails_tpu_torch.data.tokens import PAD_TOKEN
+
+    alpha = pi * bfull[:, tok[0]]
+    for t in range(1, k + 1):
+        if tok[t] != PAD_TOKEN:
+            alpha = (alpha @ a) * bfull[:, tok[t]]
+            alpha /= alpha.sum()
+    beta = np.ones(a.shape[0])
+    for t in range(len(tok) - 1, k, -1):
+        if tok[t] != PAD_TOKEN:
+            beta = a @ (bfull[:, tok[t]] * beta)
+            beta /= beta.sum()
+    return alpha, beta
+
+
+@pytest.mark.parametrize("cuts", [(40,), (17, 52), (5, 30, 31, 64)])
+def test_plain_k2_boundary_rows_match_the_split_walk(cuts):
+    """A window cut by hand into pieces: the first piece from pi and left
+    through beta at its last column, every later piece entered through
+    alpha before its first column (its column 0 a dummy token) and, but
+    the last, left through beta; the pieces' values and gradients sum to
+    the whole window's, whose column-0 terms only the first piece adds."""
+    from itrails_tpu_torch.hmm import cuda_grad
+
+    a, bfull, pi = _random_model(9, seed=13)
+    tok = np.asarray(_tokens("basic")[0], np.int32)
+    tok[20:26] = -1
+    tok[-3:] = -1
+    whole_ll, whole = cuda_grad.loglik_and_grads_plain(
+        *_torch(a, bfull, pi), torch.as_tensor(tok[None]))
+    bounds = [0, *cuts, len(tok) - 1]
+    total, sums = 0.0, [np.zeros_like(x) for x in (a, bfull, pi)]
+    for i, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])):
+        rows = {}
+        if i > 0:  # columns lo+1..hi after alpha at column lo
+            rows["entry_alpha"] = torch.as_tensor(
+                _alpha_beta_at(a, bfull, pi, tok, lo)[0][None])
+            piece = np.concatenate([[7], tok[lo + 1:hi + 1]])
+        else:
+            piece = tok[:hi + 1]
+        if hi < len(tok) - 1:
+            rows["exit_beta"] = torch.as_tensor(
+                _alpha_beta_at(a, bfull, pi, tok, hi)[1][None] * 3.0)
+        ll, grads = cuda_grad.loglik_and_grads_plain(
+            *_torch(a, bfull, pi), torch.as_tensor(piece[None].astype(np.int32)),
+            **rows)
+        if i > 0:
+            assert float(grads[2].abs().max()) == 0.0  # no dpi
+        total += float(ll)
+        for acc, g in zip(sums, grads):
+            acc += g.numpy()
+    np.testing.assert_allclose(total, float(whole_ll), rtol=1e-12)
+    for got, want in zip(sums, whole):
+        np.testing.assert_allclose(got, want.numpy(), rtol=1e-12, atol=0)
+
+
+def test_cpu_calls_with_boundary_rows_run_the_plain_version():
+    from itrails_tpu_torch.hmm import cuda_grad
+
+    a, bfull, pi = _torch(*_random_model(6, seed=2))
+    tok = torch.as_tensor(np.asarray(_tokens("T=33"), np.int32))
+    rng = np.random.default_rng(3)
+    rows = {"entry_alpha": torch.as_tensor(rng.random((2, 6))),
+            "exit_beta": torch.as_tensor(rng.random((2, 6)))}
+    before = cuda_grad.loglik_and_grads_fused.calls
+    ll, grads = cuda_grad.loglik_and_grads_fused(a, bfull, pi, tok, **rows)
+    ll_p, grads_p = cuda_grad.loglik_and_grads_plain(a, bfull, pi, tok, **rows)
+    assert cuda_grad.loglik_and_grads_fused.calls == before
+    assert torch.equal(ll, ll_p)
+    assert all(torch.equal(x, y) for x, y in zip(grads, grads_p))
 
 
 def test_expm_grad_matches_finite_differences():
@@ -208,3 +286,37 @@ def test_k2_matches_plain_on_the_card(cuda_device, m, w, t):
     ll2, grads2 = cuda_grad.loglik_and_grads_fused(a32, b32, p32, tok)
     assert torch.equal(ll, ll2)
     assert all(torch.equal(x, y) for x, y in zip(grads, grads2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,w,t", [(27, 313, 1025), (36, 40, 257), (133, 48, 513),
+                                   (9, 5, 17)])
+def test_k2_with_boundary_rows_matches_plain_on_the_card(cuda_device, m, w, t):
+    """Chunk windows: every window entered through a row (its column-0
+    token ignored) and left through one; and each argument alone."""
+    from itrails_tpu_torch.hmm import cuda_grad
+
+    a, bfull, pi = _torch(*_random_model(m), device=cuda_device)
+    rng = np.random.default_rng(m + w + t)
+    tok = rng.integers(0, 625, size=(w, t)).astype(np.int32)
+    tok[:, 0] = -1
+    tok[1, t // 2:] = -1
+    tok[2, 1:] = -1
+    tok = torch.as_tensor(tok, device=cuda_device)
+    entry = torch.as_tensor(rng.random((w, m)) + 1e-3, device=cuda_device)
+    exit_ = torch.as_tensor(rng.random((w, m)) + 1e-3, device=cuda_device)
+    a32, b32, p32 = (x.float().contiguous() for x in (a, bfull, pi))
+    for rows in ({"entry_alpha": entry, "exit_beta": exit_},
+                 {"entry_alpha": entry}, {"exit_beta": exit_}):
+        if "entry_alpha" not in rows:
+            tok[:, 0] = 3
+        before = cuda_grad.loglik_and_grads_fused.calls
+        ll, grads = cuda_grad.loglik_and_grads_fused(
+            a32, b32, p32, tok, **{k: v.float() for k, v in rows.items()})
+        torch.cuda.synchronize()
+        assert cuda_grad.loglik_and_grads_fused.calls == before + 1
+        ll_ref, g_ref = cuda_grad.loglik_and_grads_plain(a, bfull, pi, tok, **rows)
+        np.testing.assert_allclose(float(ll), float(ll_ref), rtol=1e-6)
+        for g, r in zip(grads, g_ref):
+            np.testing.assert_allclose(g.double().cpu().numpy(),
+                                       r.cpu().numpy(), rtol=2e-3, atol=0)

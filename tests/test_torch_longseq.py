@@ -1,5 +1,6 @@
-"""The port's long-block value path against the JAX package, on the CPU;
-kernel K5 against its plain version on the card.
+"""The port's long-block value path and gradient route against the JAX
+package, on the CPU; kernel K5 and the gradient route against their plain
+versions on the card.
 
 Tolerances: K5's plain version ``chunk_operators`` against the JAX
 ``longseq.chunk_operators`` in f64 at rtol 1e-12 (the same operations in
@@ -13,8 +14,20 @@ in f64 at rtol 1e-9, as tests/test_longseq.py holds the JAX function.  On
 the card, K5 against the plain version in f64 at atol 5e-5 on the
 operators and rtol 1e-6 on the log scales (f32 products over one chunk),
 and K5 on f64 tables at atol 1e-10 and rtol 1e-12.
+
+The gradient route ``forward_loglik_long_and_grads`` in f64 against
+``jax.value_and_grad(forward_loglik_long_remat)``: loglik rtol 1e-10, every
+gradient entry rtol 1e-8 (no absolute slack: a token absent from the block
+has an exact 0 on both sides); against the port's one-window walk
+(``loglik_and_grads_plain``) at rtol 1e-10 on every entry (both sum
+non-negative terms, in another order).  On the card, the route in f32
+against its plain version in f64: loglik rtol 1e-6, every gradient entry
+rtol 2e-3 (f32 normalizers over a chunk, f32 operators).
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -200,6 +213,114 @@ def test_kernel_build_needs_the_cuda_toolkit(monkeypatch, tmp_path):
         cuda_longseq.build()
 
 
+def _simulated_block(tag, t_len=3001, seed=21):
+    """A ``t_len``-column block simulated from a golden model, with a PAD
+    run inside and a PAD tail; its tables in f64 (numpy and torch)."""
+    from itrails_tpu_torch.data.simulate import simulate_token_batch
+
+    np_tables, tables = _tables(tag)
+    b = torch.as_tensor(load_golden(f"model_{tag}.npz")["b"])
+    gen = torch.Generator().manual_seed(seed)
+    tok = simulate_token_batch(tables[0], b, tables[2], 1, t_len, gen)[0]
+    tok[t_len // 3:t_len // 3 + 90] = -1
+    tok[-37:] = -1
+    return np_tables, tables, tok
+
+
+def _assert_entries(got, ref, rtol):
+    """Every entry of every gradient within ``rtol`` of the reference."""
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(np.asarray(g, np.float64),
+                                   np.asarray(r, np.float64), rtol=rtol, atol=0)
+
+
+@pytest.mark.parametrize("tag", ["1x2", "3x3"])
+def test_long_gradient_matches_jax_value_and_grad(tag):
+    """47 chunks of 64 columns against the JAX remat route's autodiff."""
+    from itrails_tpu.hmm import longseq as jax_longseq
+    from itrails_tpu_torch.hmm import longseq
+
+    (a, bfull, pi), tables, tok = _simulated_block(tag)
+    ll, grads = longseq.forward_loglik_long_and_grads(*tables, tok, chunk=64)
+    remat = functools.partial(jax_longseq.forward_loglik_long_remat, chunk=64,
+                              seg_chunks=8, inner=32)
+    ll_ref, g_ref = jax.value_and_grad(remat, argnums=(0, 1, 2))(
+        jnp.asarray(a), jnp.asarray(bfull), jnp.asarray(pi),
+        jnp.asarray(tok.numpy()))
+    assert ll.dtype == torch.float64 and ll.dim() == 0
+    assert all(g.dtype == torch.float64 for g in grads)
+    np.testing.assert_allclose(float(ll), float(ll_ref), rtol=1e-10)
+    _assert_entries([g.numpy() for g in grads], g_ref, rtol=1e-8)
+
+
+@pytest.mark.parametrize("tag,chunk", [("1x2", 64), ("3x3", 64),
+                                       ("3x3", 1024), ("3x3", 3000)])
+def test_long_gradient_matches_the_one_window_walk(tag, chunk):
+    """The route equals K2's plain version walking the block as one window,
+    with many chunks, one chunk with a PAD tail, and one chunk exactly."""
+    from itrails_tpu_torch.hmm import cuda_grad, longseq
+
+    _, tables, tok = _simulated_block(tag)
+    ll, grads = longseq.forward_loglik_long_and_grads(*tables, tok, chunk=chunk)
+    ll_ref, g_ref = cuda_grad.loglik_and_grads_plain(*tables, tok[None])
+    np.testing.assert_allclose(float(ll), float(ll_ref), rtol=1e-10)
+    _assert_entries(grads, g_ref, rtol=1e-10)
+
+
+@pytest.mark.parametrize("n_chunks", [1, 2, 3, 7, 8, 13])
+def test_boundary_rows_are_the_exclusive_products(n_chunks):
+    """alpha[c] ~ entry G_0 ... G_{c-1} and beta[c] ~ G_{c+1} ... exit,
+    each summing to 1, against the products taken one by one."""
+    from itrails_tpu_torch.hmm import longseq
+
+    rng = np.random.default_rng(n_chunks)
+    ops = torch.as_tensor(rng.random((n_chunks, 5, 5)))
+    entry, exit_ = (torch.as_tensor(rng.random(5)) for _ in range(2))
+    alpha, beta = longseq.boundary_rows(ops, entry, exit_)
+    assert alpha.shape == beta.shape == (n_chunks, 5)
+    want = entry / entry.sum()
+    for c in range(n_chunks):
+        np.testing.assert_allclose(alpha[c].numpy(), want.numpy(), rtol=1e-13)
+        want = want @ ops[c]
+        want = want / want.sum()
+    want = exit_ / exit_.sum()
+    for c in range(n_chunks - 1, -1, -1):
+        np.testing.assert_allclose(beta[c].numpy(), want.numpy(), rtol=1e-13)
+        want = ops[c] @ want
+        want = want / want.sum()
+
+
+def test_grouped_gradient_equals_one_group(monkeypatch):
+    """Under a budget of three chunks' operators, a first pass keeps each
+    group's product, and each group's operators are built again for its
+    boundary rows and its own K2 call; the value and gradient are one
+    group's."""
+    from itrails_tpu_torch.hmm import cuda_grad, longseq
+
+    _, tables, tok = _simulated_block("3x3", t_len=1 + 11 * 32)
+    whole = longseq.forward_loglik_long_and_grads(*tables, tok, chunk=32)
+    m = tables[0].shape[0]
+    monkeypatch.setattr(longseq, "OPERATOR_BUDGET_BYTES", 3 * m * m * 8)
+    calls = {"K5": [], "K2": []}
+    k5, k2 = longseq.cuda_longseq.chunk_operators_fused, cuda_grad.loglik_and_grads_fused
+
+    def spy_k5(a, bfull, stream):
+        calls["K5"].append(stream.shape[0])
+        return k5(a, bfull, stream)
+
+    def spy_k2(a, bfull, pi, tokens, **rows):
+        calls["K2"].append(tuple(tokens.shape))
+        return k2(a, bfull, pi, tokens, **rows)
+
+    monkeypatch.setattr(longseq.cuda_longseq, "chunk_operators_fused", spy_k5)
+    monkeypatch.setattr(cuda_grad, "loglik_and_grads_fused", spy_k2)
+    grouped = longseq.forward_loglik_long_and_grads(*tables, tok, chunk=32)
+    assert calls["K5"] == [3, 3, 3, 2] * 2
+    assert calls["K2"] == [(3, 33), (3, 33), (3, 33), (2, 33)]
+    np.testing.assert_allclose(float(grouped[0]), float(whole[0]), rtol=1e-13)
+    _assert_entries(grouped[1], whole[1], rtol=1e-12)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -309,3 +430,32 @@ def test_k5_wrapper_raises_on_inputs_it_does_not_take(cuda_device):
     assert cuda_longseq.chunk_operators_fused.launches == before
     cuda_longseq.chunk_operators_fused(a, bfull, tok)
     assert cuda_longseq.chunk_operators_fused.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,t_len,chunk", [(27, 50_001, 1024), (27, 20_000, 256),
+                                           (133, 20_001, 512)])
+def test_long_gradient_on_the_card_matches_the_f64_plain_route(cuda_device, m,
+                                                               t_len, chunk):
+    from itrails_tpu_torch.hmm import cuda_grad, cuda_longseq, longseq
+
+    a, bfull, pi = _random_tables(m, cuda_device)
+    rng = np.random.default_rng(m + chunk)
+    tok = rng.integers(0, 625, size=t_len).astype(np.int32)
+    tok[t_len // 2:t_len // 2 + 700] = -1
+    tok = torch.as_tensor(tok, device=cuda_device)
+    k2, k5 = (cuda_grad.loglik_and_grads_fused.calls,
+              cuda_longseq.chunk_operators_fused.launches)
+    ll, grads = longseq.forward_loglik_long_and_grads(
+        *(x.float().contiguous() for x in (a, bfull, pi)), tok, chunk=chunk)
+    torch.cuda.synchronize()
+    assert cuda_grad.loglik_and_grads_fused.calls == k2 + 1
+    assert cuda_longseq.chunk_operators_fused.launches == k5 + 1
+    ll_ref, g_ref = longseq.forward_loglik_long_and_grads_plain(a, bfull, pi, tok,
+                                                                chunk=chunk)
+    assert ll.dtype == torch.float64
+    np.testing.assert_allclose(float(ll), float(ll_ref), rtol=1e-6)
+    for g, r in zip(grads, g_ref):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.double().cpu().numpy(), r.cpu().numpy(),
+                                   rtol=2e-3, atol=0)
