@@ -5,6 +5,11 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --k5-variants [DEFINES ...]`` instead builds K5
+once for each argument, a set of ``-D`` flags such as ``"-DK5_DMMA=1688"``
+(default: the three mma shapes of the FP64 tensor cores), and times each in
+f64 and f32 on phase 2's chunks.)
+
 Phases, one result line each (every line starts with the card's name and
 power limit):
 
@@ -12,7 +17,8 @@ power limit):
    (``csrc/grad.cu``), K3 (``csrc/viterbi.cu``), K4
    (``csrc/posterior.cu``) and K5 (``csrc/operators.cu``) with nvcc for
    sm_90a, all at once, and print their registers, shared memory and
-   spills;
+   spills; K5's SASS: DMMA in every f64 instantiation, none in an f32 one,
+   one block barrier in each;
 2. K1 and then K2 against their plain PyTorch versions (f64, on the card)
    on the 3x3 model (M=27, 4096 x 8192 tokens) and the 7x7 model (M=133,
    1024 x 2048), built on the card, with ragged PAD tails and all-PAD
@@ -33,7 +39,9 @@ power limit):
    columns of a 320 kb block simulated from each model, with PAD runs, an
    all-PAD chunk and a PAD tail: operators at atol 5e-5, log scales at
    rtol 1e-6 (and, no gate, the f32 rounding of the tables' own part),
-   and K5 on the f64 tables against the plain version on them at 1e-10;
+   and K5 on the f64 tables against the plain version on them at 1e-10,
+   each beside a cuBLAS yardstick (one (C M, M) @ (M, M) product times the
+   chunk's columns) and the rows kernel's registers;
    then K2 on the chunk windows of a simulated 320 kb block at each model,
    entered and left through boundary rows, against its plain version in
    f64 with the same rows: loglik rtol 1e-6, every gradient entry rtol
@@ -810,6 +818,52 @@ def phase_k4_run_lengths(card, dev):
           f"{POST_ATOL:g}, f32 K4 no gate): " + "; ".join(parts))
 
 
+def k5_tokens(dev, a, b, pi, seed):
+    """Phase 2's K5 input: the 313 chunks of 1,024 columns of a 320 kb block
+    simulated from the model, with a PAD run, an all-PAD chunk (chunk 5)
+    and the block's PAD tail."""
+    import torch
+
+    from itrails_tpu_torch.data.simulate import simulate_token_batch
+    from itrails_tpu_torch.hmm import longseq
+
+    chunk = longseq.CHUNK
+    n_chunks = -(-(LONG_BLOCK - 1) // chunk)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tok = simulate_token_batch(a, b, pi, n_chunks, chunk, gen)
+    tok[1, 100:400] = -1  # a PAD run
+    tok[5] = -1  # an all-PAD chunk
+    tok[-1, (LONG_BLOCK - 1) % chunk:] = -1  # the block's PAD tail
+    return tok
+
+
+def k5_sass(card):
+    """K5's SASS (cuobjdump): every f64 instantiation runs its product on the
+    FP64 tensor cores (DMMA), no f32 one does, and each has one block-wide
+    barrier, the one before its column loop."""
+    import re
+
+    from itrails_tpu_torch.hmm import _build, cuda_longseq
+
+    path, _ = cuda_longseq.build()
+    funcs = {n: body for n, body in _build.sass_functions(path).items()
+             if "k5_rows" in n}
+    f64 = {n: body for n, body in funcs.items() if "k5_rows_f64" in n}
+    dmma = [len(re.findall(r"\bDMMA", body)) for body in f64.values()]
+    kinds = sorted({k for body in f64.values()
+                    for k in re.findall(r"\bDMMA\.\S+", body)})
+    bars = [len(re.findall(r"\bBAR\.SYNC", body)) for body in funcs.values()]
+    check(len(f64) == 28 and len(funcs) == 35 and min(dmma) > 0,
+          f"K5's f64 instantiations without DMMA: {dmma}")
+    check(not any(re.search(r"\b[DH]MMA", body) for n, body in funcs.items()
+                  if n not in f64), "an f32 K5 instantiation uses tensor cores")
+    check(set(bars) == {1}, f"K5 kernels' block barriers: {sorted(set(bars))}")
+    print(f"{card} | phase 1 K5 SASS (cuobjdump -sass): {len(f64)} f64 "
+          f"instantiations, each with DMMA ({min(dmma)}-{max(dmma)} a kernel: "
+          f"{', '.join(kinds)}), {len(funcs) - len(f64)} f32 ones with none; "
+          f"one BAR.SYNC in each (before the column loop)")
+
+
 def phase_k5(card, dev, m_label, n_ab, n_abc, seed, reps):
     """K5 against its plain version in f64 on the same (f32) tables, on the
     card, on the chunks of a 320 kb block simulated from the model, and K5
@@ -820,18 +874,12 @@ def phase_k5(card, dev, m_label, n_ab, n_abc, seed, reps):
     rounding of the tables alone moves the operators by ~5e-5."""
     import torch
 
-    from itrails_tpu_torch.data.simulate import simulate_token_batch
-    from itrails_tpu_torch.hmm import cuda_longseq, longseq
+    from itrails_tpu_torch.hmm import cuda_longseq
 
     a, bfull, pi, b = build_tables(n_ab, n_abc, dev)
     m = a.shape[0]
-    chunk = longseq.CHUNK
-    n_chunks = -(-(LONG_BLOCK - 1) // chunk)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    tok = simulate_token_batch(a, b, pi, n_chunks, chunk, gen)
-    tok[1, 100:400] = -1  # a PAD run
-    tok[5] = -1  # an all-PAD chunk
-    tok[-1, (LONG_BLOCK - 1) % chunk:] = -1  # the block's PAD tail
+    tok = k5_tokens(dev, a, b, pi, seed)
+    n_chunks, chunk = tok.shape
     a32, b32 = (x.float().contiguous() for x in (a, bfull))
 
     ops, logz = cuda_longseq.chunk_operators_fused(a32, b32, tok)
@@ -881,6 +929,12 @@ def phase_k5(card, dev, m_label, n_ab, n_abc, seed, reps):
     ms64 = cuda_ms(lambda: cuda_longseq.chunk_operators_fused(a, bfull, tok),
                    reps)
     bound64_ms, bound64_by = k5_bound_ms(m, tok, size=8)
+    # a yardstick, no library_ms: one cuBLAS product of every row of every
+    # chunk by a, (C M, M) @ (M, M), times the chunk's columns
+    rows32, rows64 = ops.reshape(-1, m), ops.reshape(-1, m).double()
+    yard_ms = chunk * cuda_ms(lambda: rows32 @ a32, reps)
+    yard64_ms = chunk * cuda_ms(lambda: rows64 @ a, reps)
+    att, att64 = (cuda_longseq.kernel_attributes(m, f64) for f64 in (False, True))
     print(f"{card} | phase 2 K5 {m_label} M={m} C={n_chunks} L={chunk}: "
           f"operators max abs err {ops_err:.3g} (atol {OPS_ATOL:g}), log "
           f"scales max rel err {logz_err:.3g} (rtol {LOGZ_RTOL:g}; |logz| up "
@@ -891,13 +945,21 @@ def phase_k5(card, dev, m_label, n_ab, n_abc, seed, reps):
           f"the all-PAD chunk the identity with scale 0; K5 {ms:.4f} ms (mean "
           f"of {reps}, {launches} launches), plain f64 {plain_ms:.1f} ms (one "
           f"call, host clock, no yardstick), bound {bound_ms:.4f} ms "
-          f"({bound_by}), {bound_ms / ms:.1%} of bound")
+          f"({bound_by}), {bound_ms / ms:.1%} of bound; cuBLAS yardstick "
+          f"(({n_chunks * m}, {m}) @ ({m}, {m}) x {chunk}) {yard_ms:.4f} ms; "
+          f"rows kernel {att['registers']} registers, {att['local_bytes']} "
+          f"local bytes a thread, {att['rows_per_warp']} rows a warp, up to "
+          f"{att['max_warps']} warps a block")
     print(f"{card} | phase 2 K5 {m_label} M={m} C={n_chunks} L={chunk} f64: "
           f"operators max abs err {ops64_err:.3g}, log scales max rel err "
           f"{logz64_err:.3g} (gate {VALUE64_RTOL:g}, vs the plain version on "
           f"the same f64 tables); K5 f64 {ms64:.4f} ms (mean of {reps}), "
           f"{ms64 / ms:.2f}x f32, f64 bound {bound64_ms:.4f} ms "
-          f"({bound64_by}), {bound64_ms / ms64:.1%} of bound")
+          f"({bound64_by}), {bound64_ms / ms64:.1%} of bound; cuBLAS "
+          f"yardstick {yard64_ms:.4f} ms; rows kernel {att64['registers']} "
+          f"registers, {att64['local_bytes']} local bytes a thread, "
+          f"{att64['rows_per_warp']} rows a warp, up to {att64['max_warps']} "
+          f"warps a block, mma m{att64['mma']}")
     return {"max_abs_err": ops64_err, "ms": ms64, "plain_ms": plain_ms,
             "bound_ms": bound64_ms, "bound_by": bound64_by}
 
@@ -1921,6 +1983,64 @@ def phase_long_grad(card, dev, cli):
           + "; ".join(sweep))
 
 
+def k5_variants(card, dev, variants, reps=10):
+    """K5 built with each set of ``-D`` flags in ``variants`` (e.g.
+    ``-DK5_DMMA=1688``: the f64 product's mma shape, m8n8k4 884, m16n8k4
+    1684 or m16n8k8 1688), all at once: whether each builds, its f64 SASS's
+    DMMA kinds, and its time in f64 and f32 on phase 2's chunks at M = 27
+    and M = 133, each held against the f64 plain version at phase 2's
+    gates."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from itrails_tpu_torch.hmm import _build, cuda_longseq
+
+    cases = []
+    for seed, (label, n_ab, n_abc, _, _) in enumerate(K1_SHAPES):
+        a, bfull, pi, b = build_tables(n_ab, n_abc, dev)
+        tok = k5_tokens(dev, a, b, pi, seed)
+        a32, b32 = a.float().contiguous(), bfull.float().contiguous()
+        ref = cuda_longseq.chunk_operators(a, bfull, tok.reshape(-1), tok.shape[1])
+        ref32 = cuda_longseq.chunk_operators(a32.double(), b32.double(),
+                                             tok.reshape(-1), tok.shape[1])
+        cases.append((label, (a.contiguous(), bfull.contiguous(), ref, VALUE64_RTOL),
+                      (a32, b32, ref32, OPS_ATOL), tok))
+    with ThreadPoolExecutor(len(variants)) as pool:
+        jobs = [pool.submit(cuda_longseq.build, tuple(v.split())) for v in variants]
+        built = []
+        for v, job in zip(variants, jobs):
+            try:
+                built.append((v, job.result()[0]))
+            except RuntimeError as err:
+                print(f"{card} | K5 {v}: does not build: "
+                      f"{str(err).splitlines()[-1][:300]}")
+    for v, path in built:
+        lib = cuda_longseq.bind(path)
+        kinds = sorted({w for n, body in _build.sass_functions(path).items()
+                        if "k5_rows_f64" in n for w in body.split()
+                        if w.startswith("DMMA")})
+        parts = []
+        for label, *dtypes, tok in cases:
+            for a, bfull, (ops_ref, logz_ref), gate in dtypes:
+                ops, logz = cuda_longseq.fold_rows(
+                    *cuda_longseq.launch_rows(lib, a, bfull, tok))
+                err = float((ops.double() - ops_ref).abs().max())
+                lerr = float(((logz - logz_ref).abs()
+                              / logz_ref.abs().clamp(min=1.0)).max())
+                ms = cuda_ms(lambda: cuda_longseq.launch_rows(lib, a, bfull, tok),
+                             reps)
+                f64 = a.dtype == torch.float64
+                att = cuda_longseq.kernel_attributes(a.shape[0], f64, lib)
+                parts.append(
+                    f"{label} M={a.shape[0]} {'f64' if f64 else 'f32'} "
+                    f"{ms:.4f} ms ({att['registers']} registers, "
+                    f"{att['local_bytes']} local bytes, {att['rows_per_warp']} "
+                    f"rows a warp), max abs err {err:.3g} / {lerr:.3g} (gate "
+                    f"{gate:g}{'' if err <= gate else ': MISSED'})")
+        print(f"{card} | K5 {v} ({' '.join(kinds)}): " + "; ".join(parts))
+
+
 def main():
     import torch
 
@@ -1937,6 +2057,10 @@ def main():
     print(f"{card} | torch {torch.__version__} cuda {torch.version.cuda} | "
           f"{torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
+    if sys.argv[1:2] == ["--k5-variants"]:
+        k5_variants(card, dev, sys.argv[2:] or
+                    ["-DK5_DMMA=884", "-DK5_DMMA=1684", "-DK5_DMMA=1688"])
+        return 0
     try:
         return run_phases(card, dev, t_start)
     finally:  # no process outlives the script
@@ -1950,6 +2074,7 @@ def run_phases(card, dev, t_start):
     import torch
 
     phase_build(card)
+    k5_sass(card)
     k1 = [phase_k1(card, dev, *shape, seed=seed, reps=10)
           for seed, shape in enumerate(K1_SHAPES)]
     k2 = [phase_k2(card, dev, *shape, seed=seed, reps=10, k1_ms=rec["ms"])

@@ -1,295 +1,668 @@
 // Kernel K5: the per-chunk transfer operators of one long token stream,
-// written for Hopper (sm_90a).
+// written for Hopper (sm_90a), as independent rows with per-row
+// power-of-two scales.
 //
 // Replaces the Pallas TPU kernel tools/exp_opkernel.py:97
 // chunk_operators_fused (its pallas_call at :128), whose contract is
-// itrails_tpu/hmm/longseq.py:38 chunk_operators.  For every chunk c of a
-// (C, L) token matrix, from G = I:
+// itrails_tpu/hmm/longseq.py:38 chunk_operators: for every chunk c of a
+// (C, L) token matrix, the ordered product of its columns' operators
+// a diag(e(tok_t)), max-normalized, with its log scale in f64.  Row i of
+// that product is an ordinary forward vector started from the unit vector
+// e_i, so this kernel computes rows, each with its own scale.  For every
+// row (c, i), from x = e_i, over the chunk's L columns:
 //
-//   G    <- (G @ a) * e(tok_t)^T        (e(tok) = bfull[:, tok], a row scale
-//                                        of the columns)
-//   z     = max(max over the (M, M) entries of G, FLT_MIN or DBL_MIN)
-//   G    <- G / z,   logz_c += log z    (logz in f64)
+//   x    <- (x @ a) * e(tok_t)          (e(tok) = bfull[:, tok])
+//   k     = ilogb(max_j x_j), floored at ilogb(FLT_MIN) or ilogb(DBL_MIN)
+//   x    <- x * 2^-k,   ksum_{c,i} += k
 //
-// where a PAD token (-1) keeps G and adds nothing to logz.  Outputs: the
-// max-normalized operators (C, M, M) in the tables' scalar, float or
-// double, and their log scales (C,) in f64.  Both scalars run the same
-// code; double is the optimize CLI's value path at --precision float64,
-// which scipy's finite differences need.
-// hmm/longseq.py:forward_loglik_long multiplies the operators in column
-// order and adds the log scales in f64.  The TPU kernel's split-bf16
-// emission table, one-hot emission matmul, identity-rows lane layout and
-// per-row scales are TPU workarounds and are not carried over: here each
-// chunk has one scalar scale a column, the contract of chunk_operators.
+// where a PAD token (-1) leaves x and ksum alone.  Outputs: the rows X
+// (C, M, M) in the tables' scalar, float or double, and the exponent sums
+// (C, M) int32.  A power-of-two scale is exact: the only rounding left is
+// the product's, and no column takes a log or a division.  The wrapper
+// (hmm/cuda_longseq.py) folds rows and sums into the contract in f64:
+// lr = ln2 k, logz_c = max_i (lr_ci + log max_j X_cij),
+// ops_c = X_c exp(lr_c - logz_c)[:, None].  This is the TPU kernel's own
+// formulation (per-row scales, exp_opkernel.py:47); there they were sums
+// renormalized every four columns, here exact powers of two every column.
 //
-// What bounds it on an H100: per non-PAD column the product G @ a is M^3
-// FMAs (2 M^3 operations) and the emission scale and normalization 2 M^2
-// more, against 4 bytes of token in; each chunk writes 4 M^2 + 8 bytes
-// (8 M^2 + 8 in double).  So it is bound by issue, 67 TFLOP/s in f32
-// outside the tensor cores and in f64 on the FP64 tensor cores (this
-// kernel's f64 FMAs run outside them, at half that): a 320,000-column
-// block needs ~0.195 ms at M = 27 and ~22.5 ms at M = 133.  The chunks
-// are independent, so the chunk count is the parallel axis (313 chunks of
-// 1,024 columns for 320,000 columns).
+// What bounds it on an H100: per non-PAD column of a chunk the product
+// (M rows of x @ a) is 2 M^3 operations and the emission scale and rescale
+// 2 M^2 more, against 4 bytes of token in; each chunk writes its rows and
+// sums once.  So it is bound by issue, 67 TFLOP/s in f32 outside the tensor
+// cores and in f64 on the FP64 tensor cores: a 320,000-column block needs
+// ~0.195 ms at M = 27 and ~22.5 ms at M = 133 on either scalar.
 //
-// Design (simple and exact first; wgmma on G @ a and TMA are later work):
-// * one block of kOpWarps warps owns one chunk; warp w owns the rows
-//   w, w + kOpWarps, ... of G.  Row i of G @ a is (row i of G) @ a, so a
-//   row is K1's forward step (Mat::at_x, csrc/fwd.cu) with the rows of G
-//   in place of the windows' alpha, and the rows share one token stream.
-//   Above M = 32 a warp multiplies 2-3 rows at once, loading each
-//   entry of a once for them, and keeps four partial sums an entry
-//   (rows_times_a);
-// * G lives in shared memory, one buffer of M rows of 32S scalars: a row
-//   depends only on its own old values, so each warp reads its row, waits
-//   for its lanes (__syncwarp) and writes the new row over it.  In double
-//   above M = 96, a beside G would pass 227 KB (S = 4: 129 KB of a and
-//   128 KB of G), and each block keeps its G in a (M, 32S) slice of a
-//   scratch buffer in global memory instead (k5_g_global), with the same
-//   accesses: a warp reads its own G rows once a column (1.3 KB a row at
-//   M = 133, from L1/L2), where a read from L2 would be read by every row;
-// * the column's max is a warp shuffle reduction, then one value a warp in
-//   shared memory (two slots by column parity, so one __syncthreads a
-//   column suffices), then each warp divides its own rows by it;
-// * a sits where K1 keeps it: its columns in registers at M <= 32, a
-//   (32S, 32S + 1) copy in shared memory up to M = 160 (S = 5: 103 KB of a
-//   and 100 KB of G at most; M = 133: 188 KB).  Above M = 160, a beside G
-//   would exceed the 227 KB a block may use (S = 6: 148 KB of a and 147 KB
-//   of G), so the kernel reads a zero-padded copy of a from global memory,
-//   which stays in L2 (201 KB at M = 224): correct, and slower than a
-//   thread-block cluster holding G's rows in distributed shared memory
-//   would be, which is later work.  In double a stays in shared memory
-//   up to M = 160 too (S = 5: 206 KB), with G in global memory above
-//   M = 96; above M = 160 both are read from global memory.  In double K5
-//   multiplies one or two rows at a time (k5_rows) with two partial sums
-//   an entry (k5_partials) to stay within the registers;
-// * the emission row is a direct gather from the transposed table
-//   bt = bfull^T (625, 32S), as K1's load_emission does, one column ahead;
-// * logz is accumulated in f64 by thread 0 and written as f64.
+// Layout: every row is independent, so a warp owns a tile of rows, which
+// may come from different chunks (each row reads its own chunk's tokens,
+// fetched two columns ahead), and the grid covers ceil(C M / rows a warp)
+// warps, spread over the card's SMs in as few waves as the warps a block
+// allow (block_warps): the wave count no longer hangs on C.  A block's
+// warps share a read-only copy of a in shared memory, loaded before the
+// kernel's only __syncthreads; in the column loop a warp waits only for its
+// own lanes (__syncwarp, shuffles).  A row's max is a reduction over the
+// lanes that hold it; its exponent is read from the bits of the max, and
+// 2^-k is built from bits too.  A column where every row of a tile is PAD
+// is skipped by the whole warp.
+//
+// * f32, on the FMA pipes (k5_rows_f32): a warp owns 4 rows (M <= 64) or
+//   8, lane l the columns l, l + 32, ... (S = ceil(M / 32) of them); the
+//   rows live in the warp's slice of shared memory and are read back, four
+//   entries at a time, as broadcasts, so each load of a (registers at
+//   M <= 32, else shared memory, stride 32S) serves every row of the tile.
+//   Each output sums its M terms eight at a time into the running sum, so
+//   its rounding is that of M / 8 additions (one long chain of M FMAs
+//   missed phase 2's atol 5e-5 at M = 133, 6.9e-5).  The row maxima take
+//   one transposed butterfly (rows_max: 6 or 9 shuffles, not 5 a row).  At
+//   M <= 64 the next column's emission rows are loaded during this one.
+//   f32 does not use TF32 tensor cores: they keep ~3 digits.
+// * f64, on the FP64 tensor cores (k5_rows_f64): the product is a
+//   tall-skinny GEMM, (C M, M) @ (M, M), a tile of 16 (or 8) rows at a
+//   time, with mma.sync m16n8k4 f64 (K5_DMMA 1684, the default; 884 and
+//   1688 build m8n8k4 and m16n8k8: all three are sm_90 shapes that ptxas
+//   12.9 takes, chip_smoke.py --k5-variants times them).  M is padded to
+//   MP = 8 NT.  Thread (g, t) of a warp (lane 4g + t) holds the
+//   accumulator entries (g, 8n + 2t + h) and (g + 8, 8n + 2t + h), h = 0, 1,
+//   of every 8-column tile n.  The k steps are ordered so that k step
+//   (j, h) takes, in lane (g, t), the state 8j + 2t + h: then the A
+//   fragments of the next column are the very registers the accumulator of
+//   tile j left in the same thread, and no fragment crosses lanes.  a is
+//   stored in that order once (dmma_fragments in the wrapper): the double2
+//   of lane (g, t) at (j, n) holds a[8j + 2t + h][8n + g], h = 0, 1, one
+//   conflict-free 16-byte load a lane for two k steps.  The rows of the
+//   last column (X) are kept in registers or, where X and the accumulators
+//   together would pass the 255 registers a thread may hold, in a
+//   lane-private slice of shared memory (X staged; no other lane reads it).
+//   With 16-row tiles and X in registers the next column's emission pairs
+//   are loaded during this one.
+//
+//   M (MP)             rows a warp  X       a (shared)    X a warp   warps
+//   <= 64 (<= 64)      16           regs    <= 32 KB      -          <= 8
+//   65-136 (72-136)    16           staged  41-148 KB     9-17 KB    4-8
+//   137-160 (144-160)  8            regs    166-200 KB    -          <= 8
+//   161-224 (168-224)  8            staged  - (from L2)   10-14 KB   8
+//
+//   Above M = 160 a's fragments (up to 401 KB at M = 224) do not fit in
+//   shared memory: each warp reads them one k slice at a time from the
+//   L2-resident copy, correct and slower.
+//
+// Registers a thread (nvcc 12.9 -Xptxas -v, sm_90a, no spill at any M) and
+// shared memory a block:
+//
+//   M     f32                                 f64
+//   27    90 regs, 0.5 KB a warp (rows)       194 regs, 8 KB (a)
+//   133   122 regs, 100 KB (a) + 5 KB/warp    255 regs, 145 KB (a) + 17 KB/warp
+//   224   158 regs, 196 KB (a) + 7 KB/warp    246 regs, 14 KB/warp (a from L2)
+//
+// Times for 313 chunks of 1,024 columns (chip_smoke.py phase 2, NVIDIA
+// H100 80GB HBM3, 700 W; PERF.md §6): f32 1.28 ms at M = 27 and 50.2 ms at
+// M = 133 (15% and 45% of the bound), f64 1.16 and 38.9 ms (17% and 58%),
+// against PR 12's kernel (a block a chunk, one scale a chunk) at 2.97 /
+// 99.5 ms in f32 and 5.88 / 294 ms in f64.  At M = 27 the card holds all
+// 529-2,113 warp tiles at once and the column loop's latency sets the pace.
 //
 // Launch contract: the C entry point enqueues on the given stream, does
 // not synchronize, allocates nothing, and returns cudaGetLastError().
 
 #include <cfloat>
 
-#include "fwd.cu"  // K1: Mat, load_emission, dispatch_s and the helpers
+#include "fwd.cu"  // K1's table layout (k1_table_width), load_emission, load4, kPad
+
+#ifndef K5_DMMA
+#define K5_DMMA 1684
+#endif
 
 namespace {
 
-constexpr int kOpWarps = 16;  // warps of a K5 block
-
-// Whether K5 reads a from a zero-padded copy in global memory (L2): above
-// S = 5, where a's (32S, 32S + 1) copy passes the 227 KB a block may use
-// beside G (float) or alone (double: S = 6, 296 KB).
+constexpr int kSmemBlock = 232448;  // shared memory a block may use (227 KB)
+// Rows of a warp's tile in f32 and warps of an f32 block at most, at S
+// states a lane: short tiles where the card holds every tile at once (M <=
+// 64, latency-bound), 8 rows where a's loads serve more rows and the
+// tiles fill the SMs in whole waves (M = 133: 50.4 ms against 54.7 with
+// 4 rows, chip_smoke.py --k5-variants, PERF.md).
 template <int S>
-constexpr bool k5_a_global() {
-  return S > 5;
+__host__ __device__ constexpr int f32_rows() {
+  return S <= 2 ? 4 : 8;
+}
+template <int S>
+__host__ __device__ constexpr int f32_warps() {
+  return S <= 2 ? 16 : 8;
+}
+constexpr int kWarpsF64 = 8;        // warps of an f64 block at most (255 registers)
+constexpr int kMaxNT = 28;          // 8-column tiles of M <= 224
+
+// ---------------------------------------------------------------- scales
+// The exponent k of a row's max mx (ilogb, floored at that of the smallest
+// normal, capped so that 2^-k is normal) and 2^-k, both from the bits.
+__device__ __forceinline__ int row_exponent(float mx) {
+  const int e = (__float_as_int(mx) >> 23) & 0xff;
+  return min(max(e, 1), 253) - 127;
+}
+__device__ __forceinline__ int row_exponent(double mx) {
+  const int e = static_cast<int>((__double_as_longlong(mx) >> 52) & 0x7ff);
+  return min(max(e, 1), 2045) - 1023;
+}
+__device__ __forceinline__ float pow2_neg(float, int k) {
+  return __int_as_float((127 - k) << 23);
+}
+__device__ __forceinline__ double pow2_neg(double, int k) {
+  return __longlong_as_double(static_cast<long long>(1023 - k) << 52);
 }
 
-// Whether K5 on scalar R keeps G in a scratch buffer in global memory: in
-// double above S = 3, where a's copy and G's M x 32S scalars together
-// pass 227 KB.
-template <int S, typename R>
-constexpr bool k5_g_global() {
-  return sizeof(R) == 8 && S > 3;
-}
-
-// Rows of G a warp multiplies at once (S > 1), and partial sums an entry:
-// their NR S D sums and a's 4 S entries stay within the 128 registers a
-// thread of a 512-thread block may hold (a double takes two).  In float
-// the four partial sums also keep the rounding of an entry's M-term sum
-// small; in double two suffice.
-template <int S, typename R>
-__host__ __device__ constexpr int k5_rows() {
-  if constexpr (sizeof(R) == 4) return S > 5 ? 2 : 3;
-  return S > 5 ? 1 : 2;
-}
-
-template <typename R>
-__host__ __device__ constexpr int k5_partials() {
-  return sizeof(R) == 4 ? 4 : 2;
-}
-
-__device__ __forceinline__ float max_r(float x, float y) { return fmaxf(x, y); }
-__device__ __forceinline__ double max_r(double x, double y) { return fmax(x, y); }
-
-template <typename R>
-__device__ __forceinline__ R warp_max(R x) {
+// ------------------------------------------------------------------ f32
+// The max over the warp of R rows' values v[q] (R = 2^n <= 32), as a
+// transposed butterfly: each of the first n steps halves the rows a lane
+// carries, so it takes 5 dependent steps and R - 1 + 5 - n shuffles in all,
+// not 5 R.  On return lane l holds the max of one row, which
+// rows_max_lane(q) names for row q.
+template <int R>
+__device__ __forceinline__ float rows_max(const float (&v)[R], int lane) {
+  float cur[R];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = max_r(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
-// out[q][k] = (x_q @ a)_{lane + 32k} for the NR rows x_q of G, S > 1.  Each
-// entry of a is loaded once for the NR rows (Mat::at_x loads one entry of
-// a per FMA, so shared-memory loads, not FMAs, would bound the product),
-// and each sum is kept in D partial sums (D = 4: one for each of the four
-// source states of a step, added at the end as Mat::at_x does at S == 1;
-// D = 2: states 0, 2 and 1, 3): D independent FMA chains, and a rounding
-// error that grows with M/D terms instead of M.
-template <int NR, int S, typename R, bool G>
-__device__ __forceinline__ void rows_times_a(const Mat<S, R, G>& am,
-                                             const R* const (&x)[NR],
-                                             R (&out)[NR][S], int lane) {
-  constexpr int LDA = Mat<S, R, G>::LDA;
-  constexpr int D = k5_partials<R>();
-  R p[D][NR][S];
+  for (int q = 0; q < R; ++q) cur[q] = v[q];
+  int off = 16;
 #pragma unroll
-  for (int d = 0; d < D; ++d)
+  for (int n = R; n > 1; n /= 2, off /= 2) {
+    const bool up = lane & off;
 #pragma unroll
-    for (int q = 0; q < NR; ++q)
-#pragma unroll
-      for (int k = 0; k < S; ++k) p[d][q][k] = 0;
-  for (int i = 0; i < am.m4; i += 4) {
-    const R* r = am.s_a + i * LDA + lane;
-    R av[4][S];
-#pragma unroll
-    for (int d = 0; d < 4; ++d)
-#pragma unroll
-      for (int k = 0; k < S; ++k) av[d][k] = r[d * LDA + 32 * k];
-#pragma unroll
-    for (int q = 0; q < NR; ++q) {
-      const auto v = load4(x[q] + i);
-#pragma unroll
-      for (int k = 0; k < S; ++k) {
-        p[0][q][k] = fma_r(av[0][k], v.x, p[0][q][k]);
-        p[1][q][k] = fma_r(av[1][k], v.y, p[1][q][k]);
-        p[2 % D][q][k] = fma_r(av[2][k], v.z, p[2 % D][q][k]);
-        p[3 % D][q][k] = fma_r(av[3][k], v.w, p[3 % D][q][k]);
-      }
+    for (int i = 0; i < n / 2; ++i) {
+      const float send = up ? cur[i] : cur[n / 2 + i];
+      cur[i] = fmaxf(up ? cur[n / 2 + i] : cur[i], __shfl_xor_sync(kFull, send, off));
     }
   }
 #pragma unroll
-  for (int q = 0; q < NR; ++q)
-#pragma unroll
-    for (int k = 0; k < S; ++k)
-      out[q][k] = D == 4 ? (p[0][q][k] + p[1][q][k]) + (p[2 % D][q][k] + p[3 % D][q][k])
-                         : p[0][q][k] + p[1][q][k];
+  for (; off > 0; off /= 2) cur[0] = fmaxf(cur[0], __shfl_xor_sync(kFull, cur[0], off));
+  return cur[0];
 }
 
-template <int S, typename R, bool GA, bool GG>
-__global__ void __launch_bounds__(kOpWarps * 32)
-k5_operators_kernel(const R* __restrict__ a,       // (M, M), or (32S, 32S+1) with GA
-                    const R* __restrict__ bt,      // (625, 32*S), zero pad
-                    const int* __restrict__ tokens,  // (C, L), PAD = -1
-                    R* __restrict__ ops,           // (C, M, M)
-                    double* __restrict__ logz,     // (C,)
-                    R* __restrict__ gbuf,          // (C, M, 32S) with GG
-                    int L, int M) {
+template <int R>
+__device__ __forceinline__ int rows_max_lane(int q) {
+  int lane = 0, off = 16;
+#pragma unroll
+  for (int n = R; n > 1; n /= 2, off /= 2)
+    if (q & (n / 2)) lane += off;
+  return lane;
+}
+
+template <int S>
+__global__ void __launch_bounds__(f32_warps<S>() * 32, 1)
+k5_rows_f32(const float* __restrict__ a,       // (M, M)
+            const float* __restrict__ bt,      // (625, 32S), zero pad
+            const int* __restrict__ tokens,    // (C, L), PAD = -1
+            float* __restrict__ x_out,         // (C, M, M)
+            int* __restrict__ k_out,           // (C, M)
+            int C, int L, int M) {
   constexpr int MP = 32 * S;
-  constexpr R kTiny = sizeof(R) == 4 ? R(FLT_MIN) : R(DBL_MIN);
+  constexpr int R = f32_rows<S>();
   extern __shared__ float4 smem4[];
-  R* smem = reinterpret_cast<R*>(smem4);
-  R* g = GG ? gbuf + static_cast<size_t>(blockIdx.x) * M * MP  // (M, MP): G
-            : smem + Mat<S, R, GA>::kSmem;
-  R* s_max = smem + Mat<S, R, GA>::kSmem + (GG ? 0 : M * MP);  // (2, kOpWarps)
-  const int warp = threadIdx.x >> 5;
+  float* s_a = reinterpret_cast<float*>(smem4);  // (MP, MP) with S > 1
+  float* xs = s_a + (S > 1 ? MP * MP : 0) + (threadIdx.x >> 5) * R * MP;
   const int lane = threadIdx.x & 31;
-  Mat<S, R, GA> am;
-  am.load(a, smem, M, lane);
-  for (int idx = threadIdx.x; idx < M * MP; idx += blockDim.x) {
-    const int i = idx / MP;
-    g[idx] = idx - i * MP == i ? R(1) : R(0);  // G = I
+  float acol[S == 1 ? 32 : 1];  // S == 1: acol[i] = a[i][lane]
+  if constexpr (S == 1) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acol[i] = (i < M && lane < M) ? a[i * M + lane] : 0.f;
+  } else {
+    for (int idx = threadIdx.x; idx < MP * MP; idx += blockDim.x) {
+      const int i = idx / MP, j = idx - (idx / MP) * MP;
+      s_a[idx] = (i < M && j < M) ? a[i * M + j] : 0.f;
+    }
   }
   __syncthreads();
+  const int rows = C * M;
+  const int r0 = (blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) * R;
+  if (r0 >= rows) return;  // after the kernel's only block-wide barrier
 
-  const int* row = tokens + static_cast<size_t>(blockIdx.x) * L;
-  int tok = __ldg(row);
-  R e[S];
-  load_emission<S>(e, bt, tok, lane);
-  double lz = 0.0;  // thread 0's sum of log z
-  int par = 0;      // the slot of s_max this column writes
+  // lane q < R carries row r0 + q: its token stream, its tokens of this
+  // column and the next, and its exponent sum
+  const int rq = r0 + (lane < R ? lane : 0);
+  const bool own = lane < R && rq < rows;
+  const int* trow = tokens + static_cast<size_t>(rq / M) * L;
+  int tok = own ? __ldg(trow) : kPad;
+  int tok_n = own && L > 1 ? __ldg(trow + 1) : kPad;
+  int ksum = 0;
+#pragma unroll
+  for (int q = 0; q < R; ++q) {  // x = the rows' unit vectors
+    const int i = (r0 + q) % M;
+#pragma unroll
+    for (int s = 0; s < S; ++s) xs[q * MP + lane + 32 * s] = lane + 32 * s == i ? 1.f : 0.f;
+  }
+  // EP: this column's emission rows are loaded during the last column
+  constexpr bool EP = S <= 2;
+  float e[EP ? R : 1][S];
+  if constexpr (EP) {
+#pragma unroll
+    for (int q = 0; q < R; ++q) load_emission<S>(e[q], bt, __shfl_sync(kFull, tok, q), lane);
+  }
+  __syncwarp();
+  const int m8 = (M + 7) & ~7;
 
   for (int t = 0; t < L; ++t) {
-    const int tok_n = t + 1 < L ? __ldg(row + t + 1) : kPad;
-    R e_n[S];
-    load_emission<S>(e_n, bt, tok_n, lane);  // consumed next column
-
-    if (tok != kPad) {  // uniform across the block: one chunk a block
-      R mx = 0;
-      if constexpr (S == 1) {  // a's columns in registers: one row at a time
-        for (int r = warp; r < M; r += kOpWarps) {
-          R* x = g + r * MP;
-          R out[S];
-          am.at_x(out, x, lane);  // (row r of G) @ a
-          __syncwarp();           // every lane has read row r
-          const R v = out[0] * e[0];
-          x[lane] = v;
-          mx = max_r(mx, v);
-        }
-      } else {  // NR rows at a time: r0, r0 + kOpWarps, ...
-        constexpr int NR = k5_rows<S, R>();
-        for (int r0 = warp; r0 < M; r0 += NR * kOpWarps) {
-          const R* xs[NR];
+    const int tok_nn = own && t + 2 < L ? __ldg(trow + t + 2) : kPad;
+    const unsigned live = __ballot_sync(kFull, tok != kPad);  // bit q: row q
+    if (live != 0) {  // uniform across the warp
+      // y[q][s] = (row q @ a)_{lane + 32 s}, summed eight terms at a time
+      // into y, which keeps an f32 sum's rounding that of M / 8 additions
+      float y[R][S];
 #pragma unroll
-          for (int q = 0; q < NR; ++q) {
-            const int r = r0 + q * kOpWarps;
-            xs[q] = g + (r < M ? r : r0) * MP;  // past M: row r0 again, unused
+      for (int q = 0; q < R; ++q)
+#pragma unroll
+        for (int s = 0; s < S; ++s) y[q][s] = 0.f;
+      if constexpr (S == 1) {
+#pragma unroll
+        for (int k = 0; k < 32; k += 8) {
+          if (k < m8) {
+#pragma unroll
+            for (int q = 0; q < R; ++q) {
+              const auto u = load4(xs + q * MP + k);
+              const auto v = load4(xs + q * MP + k + 4);
+              float p = acol[k] * u.x;
+              p = fmaf(acol[k + 1], u.y, p);
+              p = fmaf(acol[k + 2], u.z, p);
+              p = fmaf(acol[k + 3], u.w, p);
+              p = fmaf(acol[k + 4], v.x, p);
+              p = fmaf(acol[k + 5], v.y, p);
+              p = fmaf(acol[k + 6], v.z, p);
+              p = fmaf(acol[k + 7], v.w, p);
+              y[q][0] += p;
+            }
           }
-          R out[NR][S];
-          rows_times_a<NR>(am, xs, out, lane);
-          __syncwarp();  // every lane has read the rows
+        }
+      } else {
+        for (int k = 0; k < m8; k += 8) {
+          float av[8][S];
 #pragma unroll
-          for (int q = 0; q < NR; ++q) {
-            if (r0 + q * kOpWarps >= M) break;
-            R* x = g + (r0 + q * kOpWarps) * MP;
+          for (int d = 0; d < 8; ++d)
 #pragma unroll
-            for (int k = 0; k < S; ++k) {
-              const R v = out[q][k] * e[k];
-              x[lane + 32 * k] = v;
-              mx = max_r(mx, v);
+            for (int s = 0; s < S; ++s) av[d][s] = s_a[(k + d) * MP + lane + 32 * s];
+#pragma unroll
+          for (int q = 0; q < R; ++q) {
+            const auto u = load4(xs + q * MP + k);
+            const auto v = load4(xs + q * MP + k + 4);
+#pragma unroll
+            for (int s = 0; s < S; ++s) {
+              float p = av[0][s] * u.x;
+              p = fmaf(av[1][s], u.y, p);
+              p = fmaf(av[2][s], u.z, p);
+              p = fmaf(av[3][s], u.w, p);
+              p = fmaf(av[4][s], v.x, p);
+              p = fmaf(av[5][s], v.y, p);
+              p = fmaf(av[6][s], v.z, p);
+              p = fmaf(av[7][s], v.w, p);
+              y[q][s] += p;
             }
           }
         }
       }
-      mx = warp_max(mx);
-      if (lane == 0) s_max[par * kOpWarps + warp] = mx;
-      __syncthreads();
-      R z = 0;
+      float mx[R];
 #pragma unroll
-      for (int q = 0; q < kOpWarps; ++q) z = max_r(z, s_max[par * kOpWarps + q]);
-      z = max_r(z, kTiny);
-      for (int r = warp; r < M; r += kOpWarps) {
-        R* x = g + r * MP;
+      for (int q = 0; q < R; ++q) {  // the emission, each row its own token's
+        float eq[S];
+        if constexpr (EP) {
 #pragma unroll
-        for (int k = 0; k < S; ++k) x[lane + 32 * k] = x[lane + 32 * k] / z;
+          for (int s = 0; s < S; ++s) eq[s] = e[q][s];
+        } else {
+          load_emission<S>(eq, bt, __shfl_sync(kFull, tok, q), lane);
+        }
+        mx[q] = 0.f;
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          y[q][s] *= eq[s];
+          mx[q] = fmaxf(mx[q], y[q][s]);
+        }
+      }
+      const int kr = row_exponent(rows_max<R>(mx, lane));  // of one row
+      const int kq = __shfl_sync(kFull, kr, rows_max_lane<R>(lane & (R - 1)));
+      if (lane < R && ((live >> lane) & 1u)) ksum += kq;
+      __syncwarp();  // every lane has read the old rows
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const float sc = pow2_neg(0.f, __shfl_sync(kFull, kr, rows_max_lane<R>(q)));
+        if ((live >> q) & 1u) {
+#pragma unroll
+          for (int s = 0; s < S; ++s) xs[q * MP + lane + 32 * s] = y[q][s] * sc;
+        }
       }
       __syncwarp();  // the next column's product reads whole rows
-      if (threadIdx.x == 0) lz += log(static_cast<double>(z));
-      par ^= 1;
+    }
+    if constexpr (EP) {  // the next column's emission rows, in flight during it
+#pragma unroll
+      for (int q = 0; q < R; ++q)
+        load_emission<S>(e[q], bt, __shfl_sync(kFull, tok_n, q), lane);
     }
     tok = tok_n;
-#pragma unroll
-    for (int k = 0; k < S; ++k) e[k] = e_n[k];
+    tok_n = tok_nn;
   }
 
-  R* out = ops + static_cast<size_t>(blockIdx.x) * M * M;
-  for (int r = warp; r < M; r += kOpWarps)
-    for (int j = lane; j < M; j += 32) out[r * M + j] = g[r * MP + j];
-  if (threadIdx.x == 0) logz[blockIdx.x] = lz;
+#pragma unroll
+  for (int q = 0; q < R; ++q) {  // a lane's own columns: no wait needed
+    const int r = r0 + q;
+    if (r >= rows) break;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int j = lane + 32 * s;
+      if (j < M) x_out[static_cast<size_t>(r) * M + j] = xs[q * MP + j];
+    }
+  }
+  if (own) k_out[rq] = ksum;
 }
 
-template <int S, typename R>
-size_t k5_smem(int M) {
-  return static_cast<size_t>(Mat<S, R, k5_a_global<S>()>::kSmem +
-                             (k5_g_global<S, R>() ? 0 : M * 32 * S) +
-                             2 * kOpWarps) * sizeof(R);
+// ------------------------------------------------------------------ f64
+// One mma.sync of the FP64 tensor cores: D = A B + D, D in place.
+__device__ __forceinline__ void dmma884(double (&c)[2], double a, double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+      "{%0,%1}, {%2}, {%3}, {%0,%1};\n"
+      : "+d"(c[0]), "+d"(c[1])
+      : "d"(a), "d"(b));
 }
 
-template <int S, typename R>
-int launch_k5(const void* a, const void* bt, const int* tokens, void* ops,
-              double* logz, void* gbuf, int C, int L, int M,
-              cudaStream_t stream) {
-  constexpr bool GA = k5_a_global<S>();
-  constexpr bool GG = k5_g_global<S, R>();
-  if (GG && gbuf == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = k5_smem<S, R>(M);
-  const cudaError_t err = allow_smem(k5_operators_kernel<S, R, GA, GG>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  k5_operators_kernel<S, R, GA, GG><<<C, kOpWarps * 32, smem, stream>>>(
-      static_cast<const R*>(a), static_cast<const R*>(bt), tokens,
-      static_cast<R*>(ops), logz, static_cast<R*>(gbuf), L, M);
-  return static_cast<int>(cudaGetLastError());
+#if K5_DMMA == 1684
+__device__ __forceinline__ void dmma1684(double (&c)[2][2], double a0, double a1,
+                                         double b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+d"(c[0][0]), "+d"(c[0][1]), "+d"(c[1][0]), "+d"(c[1][1])
+      : "d"(a0), "d"(a1), "d"(b));
+}
+#elif K5_DMMA == 1688
+__device__ __forceinline__ void dmma1688(double (&c)[2][2], double a0, double a1,
+                                         double a2, double a3, double b0,
+                                         double b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+d"(c[0][0]), "+d"(c[0][1]), "+d"(c[1][0]), "+d"(c[1][1])
+      : "d"(a0), "d"(a1), "d"(a2), "d"(a3), "d"(b0), "d"(b1));
+}
+#endif
+
+// c[rh][i] += sum over the two k steps (j, h) of x[rh][h] b.h, for the
+// RH 8-row halves of a tile: (g + 8 rh, 8n + 2t + i) += x(g + 8 rh,
+// 8j + 2t' + h) a(8j + 2t' + h, 8n + 2t + i) summed over t' and h.
+template <int RH>
+__device__ __forceinline__ void dmma_step(double (&c)[RH][2],
+                                          const double (&x)[RH][2], double2 b) {
+  if constexpr (RH == 1) {
+    dmma884(c[0], x[0][0], b.x);
+    dmma884(c[0], x[0][1], b.y);
+  } else {
+#if K5_DMMA == 1688
+    dmma1688(c, x[0][0], x[1][0], x[0][1], x[1][1], b.x, b.y);
+#elif K5_DMMA == 1684
+    dmma1684(c, x[0][0], x[1][0], b.x);
+    dmma1684(c, x[0][1], x[1][1], b.y);
+#else
+#pragma unroll
+    for (int rh = 0; rh < RH; ++rh) {
+      dmma884(c[rh], x[rh][0], b.x);
+      dmma884(c[rh], x[rh][1], b.y);
+    }
+#endif
+  }
+}
+
+// The emission pairs of row half rh for token tok: e[n][rh] holds
+// bt[tok][8n + 2 t4 + h], h = 0, 1 (0 for a PAD or a token outside the
+// alphabet: such a pair is never used, or zeroes the row).
+template <int NT, int RH>
+__device__ __forceinline__ void emission_pairs(double2 (&e)[NT][RH], int rh,
+                                               const double* __restrict__ bt,
+                                               int tok, int width, int t4) {
+  const bool ok = static_cast<unsigned>(tok) < static_cast<unsigned>(kTokens);
+  const double2* row = reinterpret_cast<const double2*>(
+      bt + static_cast<size_t>(ok ? tok : 0) * width + 2 * t4);
+#pragma unroll
+  for (int n = 0; n < NT; ++n) e[n][rh] = ok ? __ldg(row + 4 * n) : make_double2(0.0, 0.0);
+}
+
+// The layout of the f64 kernel at NT 8-column tiles (see the table above).
+template <int NT>
+struct F64Layout {
+  static constexpr int RH = NT <= 17 ? 2 : 1;             // 8-row halves a warp
+  static constexpr bool XS = (NT > 8 && NT <= 17) || NT > 20;  // X staged
+  static constexpr bool GB = NT > 20;                     // a's fragments from L2
+  static constexpr size_t kFixed = GB ? 0 : sizeof(double2) * NT * NT * 32;
+  static constexpr size_t kWarp = XS ? sizeof(double2) * NT * RH * 32 : 0;
+};
+
+template <int NT, int RH, bool XS, bool GB>
+__global__ void __launch_bounds__(kWarpsF64 * 32, 1)
+k5_rows_f64(const double2* __restrict__ afr,   // (NT, NT, 32) a's fragments
+            const double* __restrict__ bt,     // (625, width), zero pad
+            const int* __restrict__ tokens,    // (C, L), PAD = -1
+            double* __restrict__ x_out,        // (C, M, M)
+            int* __restrict__ k_out,           // (C, M)
+            int C, int L, int M, int width) {
+  constexpr int RW = 8 * RH;
+  extern __shared__ double2 smem2[];
+  double2* xs = smem2 + (GB ? 0 : NT * NT * 32) + (threadIdx.x >> 5) * (NT * RH * 32);
+  if constexpr (!GB) {
+    for (int idx = threadIdx.x; idx < NT * NT * 32; idx += blockDim.x) smem2[idx] = afr[idx];
+  }
+  __syncthreads();
+  const double2* fr = GB ? afr : smem2;
+  const int rows = C * M;
+  const int r0 = (blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) * RW;
+  if (r0 >= rows) return;  // after the kernel's only block-wide barrier
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+
+  int r[RH], tok[RH], tok_n[RH], ksum[RH];
+  bool own[RH];
+  const int* trow[RH];
+  double x[XS ? 1 : NT][RH][2];  // x[j][rh][h] = X(g + 8 rh, 8j + 2 t4 + h)
+#pragma unroll
+  for (int rh = 0; rh < RH; ++rh) {
+    r[rh] = r0 + g + 8 * rh;
+    own[rh] = r[rh] < rows;
+    trow[rh] = tokens + static_cast<size_t>((own[rh] ? r[rh] : r0) / M) * L;
+    tok[rh] = own[rh] ? __ldg(trow[rh]) : kPad;
+    tok_n[rh] = own[rh] && L > 1 ? __ldg(trow[rh] + 1) : kPad;
+    ksum[rh] = 0;
+    const int i = r[rh] % M;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {  // x = the rows' unit vectors
+      const double v0 = 8 * j + 2 * t4 == i ? 1.0 : 0.0;
+      const double v1 = 8 * j + 2 * t4 + 1 == i ? 1.0 : 0.0;
+      if constexpr (XS) {
+        xs[(j * RH + rh) * 32 + lane] = make_double2(v0, v1);
+      } else {
+        x[j][rh][0] = v0;
+        x[j][rh][1] = v1;
+      }
+    }
+  }
+
+  // EP (16-row tiles with X in registers): this column's emission pairs
+  // e[n][rh] = (e(g + 8 rh)_{8n + 2 t4}, e(...)_{8n + 2 t4 + 1}) are loaded
+  // during the last column.  Elsewhere the registers are full (8-row tiles
+  // at M <= 160 would spill), and they are loaded after the product.
+  constexpr bool EP = !XS && RH == 2;
+  double2 e[EP ? NT : 1][RH];
+  if constexpr (EP) {
+#pragma unroll
+    for (int rh = 0; rh < RH; ++rh) emission_pairs<NT>(e, rh, bt, tok[rh], width, t4);
+  }
+
+  for (int t = 0; t < L; ++t) {
+    int tok_nn[RH];
+    bool live[RH], any = false;
+#pragma unroll
+    for (int rh = 0; rh < RH; ++rh) {
+      tok_nn[rh] = own[rh] && t + 2 < L ? __ldg(trow[rh] + t + 2) : kPad;
+      live[rh] = tok[rh] != kPad;
+      any = any || live[rh];
+    }
+    if (__any_sync(kFull, any)) {  // uniform across the warp
+      double c[NT][RH][2];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int rh = 0; rh < RH; ++rh) c[n][rh][0] = c[n][rh][1] = 0.0;
+      if constexpr (XS) {
+#pragma unroll 1
+        for (int j = 0; j < NT; ++j) {
+          double xa[RH][2];
+#pragma unroll
+          for (int rh = 0; rh < RH; ++rh) {
+            const double2 v = xs[(j * RH + rh) * 32 + lane];
+            xa[rh][0] = v.x;
+            xa[rh][1] = v.y;
+          }
+          const double2* f = fr + j * NT * 32 + lane;
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            if constexpr (GB) {
+              dmma_step<RH>(c[n], xa, __ldg(f + n * 32));
+            } else {
+              dmma_step<RH>(c[n], xa, f[n * 32]);
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const double2* f = fr + j * NT * 32 + lane;
+#pragma unroll
+          for (int n = 0; n < NT; ++n) dmma_step<RH>(c[n], x[j], f[n * 32]);
+        }
+      }
+      if constexpr (!EP) {
+#pragma unroll
+        for (int rh = 0; rh < RH; ++rh) {
+          const bool ok = static_cast<unsigned>(tok[rh]) < static_cast<unsigned>(kTokens);
+          const double* erow = bt + static_cast<size_t>(ok ? tok[rh] : 0) * width + 2 * t4;
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            const double2 en = ok ? __ldg(reinterpret_cast<const double2*>(erow + 8 * n))
+                                  : make_double2(0.0, 0.0);
+            c[n][rh][0] *= en.x;
+            c[n][rh][1] *= en.y;
+          }
+        }
+      }
+#pragma unroll
+      for (int rh = 0; rh < RH; ++rh) {  // the emission, the row max, the scale
+        double mx = 0.0;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          if constexpr (EP) {
+            c[n][rh][0] *= e[n][rh].x;
+            c[n][rh][1] *= e[n][rh].y;
+          }
+          mx = fmax(mx, fmax(c[n][rh][0], c[n][rh][1]));
+        }
+        mx = fmax(mx, __shfl_xor_sync(kFull, mx, 1));  // the quad holds the row
+        mx = fmax(mx, __shfl_xor_sync(kFull, mx, 2));
+        const int k = row_exponent(mx);
+        const double sc = pow2_neg(0.0, k);
+        if (live[rh]) {
+          ksum[rh] += k;
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {  // tile n becomes k steps (n, 0..1)
+            if constexpr (XS) {
+              xs[(n * RH + rh) * 32 + lane] =
+                  make_double2(c[n][rh][0] * sc, c[n][rh][1] * sc);
+            } else {
+              x[n][rh][0] = c[n][rh][0] * sc;
+              x[n][rh][1] = c[n][rh][1] * sc;
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int rh = 0; rh < RH; ++rh) {
+      if constexpr (EP) emission_pairs<NT>(e, rh, bt, tok_n[rh], width, t4);
+      tok[rh] = tok_n[rh];
+      tok_n[rh] = tok_nn[rh];
+    }
+  }
+
+#pragma unroll
+  for (int rh = 0; rh < RH; ++rh) {
+    if (!own[rh]) continue;
+    double* out = x_out + static_cast<size_t>(r[rh]) * M;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      double v0, v1;
+      if constexpr (XS) {
+        const double2 v = xs[(j * RH + rh) * 32 + lane];
+        v0 = v.x;
+        v1 = v.y;
+      } else {
+        v0 = x[j][rh][0];
+        v1 = x[j][rh][1];
+      }
+      const int col = 8 * j + 2 * t4;
+      if (col < M) out[col] = v0;
+      if (col + 1 < M) out[col + 1] = v1;
+    }
+    if (t4 == 0) k_out[r[rh]] = ksum[rh];
+  }
+}
+
+// -------------------------------------------------------------- launches
+// Warps of a block: the fewest waves over the card's SMs at one block an SM
+// for `tiles` warp tiles, then the blocks spread evenly over those waves.
+int block_warps(int tiles, int max_warps) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      sms < 1)
+    sms = 1;
+  const int waves = (tiles + sms * max_warps - 1) / (sms * max_warps);
+  const int w = (tiles + sms * waves - 1) / (sms * waves);
+  return w < 1 ? 1 : (w > max_warps ? max_warps : w);
+}
+
+// One K5 instantiation: its kernel, the rows a warp owns, the shared memory
+// of the block (fixed) and of each warp, and the warps a block at most.
+template <typename Kernel>
+struct Rows {
+  Kernel kernel;
+  int rows_per_warp;
+  size_t fixed, per_warp;
+  int max_warps;
+};
+
+template <typename Kernel>
+Rows<Kernel> rows_config(Kernel kernel, int rows_per_warp, size_t fixed,
+                         size_t per_warp, int cap) {
+  int w = cap;
+  if (per_warp > 0) {
+    const size_t fit = (kSmemBlock - fixed) / per_warp;
+    w = fit < static_cast<size_t>(cap) ? static_cast<int>(fit) : cap;
+  }
+  return {kernel, rows_per_warp, fixed, per_warp, w};
+}
+
+// Calls f with the Rows of the f64 instantiation at nt 8-column tiles.
+template <int NT, typename F>
+int dispatch_nt(int nt, F& f) {
+  if (nt == NT) {
+    using Lay = F64Layout<NT>;
+    return f(rows_config(k5_rows_f64<NT, Lay::RH, Lay::XS, Lay::GB>, 8 * Lay::RH,
+                         Lay::kFixed, Lay::kWarp, kWarpsF64));
+  }
+  if constexpr (NT < kMaxNT) {
+    return dispatch_nt<NT + 1>(nt, f);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Calls f with the Rows of the instantiation K5 runs at M states on f32
+// (f64 == 0) or f64 tables.
+template <typename F>
+int dispatch_k5(int M, int f64, F&& f) {
+  if (f64 != 0) return dispatch_nt<1>((M + 7) / 8, f);
+  return dispatch_s(M, [&](auto sc) {
+    constexpr int S = decltype(sc)::value;
+    constexpr size_t fixed = S > 1 ? sizeof(float) * 32 * S * 32 * S : 0;
+    return f(rows_config(k5_rows_f32<S>, f32_rows<S>(), fixed,
+                         sizeof(float) * f32_rows<S>() * 32 * S, f32_warps<S>()));
+  });
 }
 
 }  // namespace
@@ -298,36 +671,53 @@ extern "C" {
 
 int k5_max_states() { return 32 * kMaxS; }
 
-// The tables' layout is K1's: bt is (625, k1_table_width(M)).  Row stride
-// of the zero-padded (32S, 32S + 1) copy of a that K5 reads from global
-// memory at M states, on either scalar, or 0 where it takes a as the plain
-// (M, M) matrix.
-int k5_a_stride(int M) {
-  const int S = (M + 31) / 32;
-  return S > 5 ? 32 * S + 1 : 0;
-}
-
-// Scalars of G's scratch in global memory for one chunk (M x 32S), or 0
-// where G lives in shared memory.
-int k5_g_scratch(int M, int f64) {
-  const int S = (M + 31) / 32;
-  return f64 != 0 && S > 3 ? M * 32 * S : 0;
-}
-
-// The operators (C, M, M) and log scales (C,) of a (C, L) token matrix.
-// Every float argument is double where f64 != 0; gbuf is (C, M, 32S) where
-// k5_g_scratch(M, f64) is not 0, else it may be null.
-int k5_operators(const void* a, const void* bt, const int* tokens, void* ops,
-                 double* logz, void* gbuf, int C, int L, int M, int f64,
-                 void* stream) {
+// The rows X (C, M, M) and exponent sums (C, M) int32 of a (C, L) token
+// matrix.  f64 == 0: a is the (M, M) float matrix; else a's (NT, NT, 32)
+// double2 fragments.  bt is (625, k1_table_width(M)) in the tables' scalar.
+int k5_rows(const void* a, const void* bt, const int* tokens, void* x, int* k,
+            int C, int L, int M, int f64, void* stream) {
   if (C < 1 || L < 1 || M < 1 || M > 32 * kMaxS)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch_s(M, [&](auto sc) {
-    constexpr int S = decltype(sc)::value;
-    return f64 != 0
-               ? launch_k5<S, double>(a, bt, tokens, ops, logz, gbuf, C, L, M, s)
-               : launch_k5<S, float>(a, bt, tokens, ops, logz, gbuf, C, L, M, s);
+  const int width = k1_table_width(M);
+  return dispatch_k5(M, f64, [&](auto cfg) {
+    if (cfg.max_warps < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    const int tiles = (C * M + cfg.rows_per_warp - 1) / cfg.rows_per_warp;
+    const int w = block_warps(tiles, cfg.max_warps);
+    const size_t smem = cfg.fixed + w * cfg.per_warp;
+    const cudaError_t err = allow_smem(cfg.kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((tiles + w - 1) / w);
+    auto kernel = cfg.kernel;
+    if constexpr (std::is_same_v<decltype(kernel), decltype(&k5_rows_f32<1>)>) {
+      kernel<<<grid, 32 * w, smem, s>>>(
+          static_cast<const float*>(a), static_cast<const float*>(bt), tokens,
+          static_cast<float*>(x), k, C, L, M);
+    } else {
+      kernel<<<grid, 32 * w, smem, s>>>(
+          static_cast<const double2*>(a), static_cast<const double*>(bt), tokens,
+          static_cast<double*>(x), k, C, L, M, width);
+    }
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// What K5 runs at M states on f32 (f64 == 0) or f64 tables: out[0]
+// registers a thread, out[1] local (spill) bytes a thread, out[2] rows a
+// warp, out[3] warps a block at most, out[4] the mma shape (884, 1684 or
+// 1688; 0 in f32).
+int k5_attributes(int M, int f64, int* out) {
+  if (M < 1 || M > 32 * kMaxS) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_k5(M, f64, [&](auto cfg) {
+    cudaFuncAttributes at;
+    const cudaError_t err = cudaFuncGetAttributes(&at, cfg.kernel);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out[0] = at.numRegs;
+    out[1] = static_cast<int>(at.localSizeBytes);
+    out[2] = cfg.rows_per_warp;
+    out[3] = cfg.max_warps;
+    out[4] = f64 == 0 ? 0 : (cfg.rows_per_warp == 8 ? 884 : K5_DMMA);
+    return 0;
   });
 }
 

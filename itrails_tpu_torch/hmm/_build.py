@@ -16,7 +16,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "compile_library"]
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "compile_library", "sass_functions"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "itrails_tpu_torch"
@@ -33,25 +33,44 @@ def _nvcc(what: str) -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def compile_library(src: Path, stem: str, build_dir: Path,
-                    what: str) -> tuple[Path, str]:
+def compile_library(src: Path, stem: str, build_dir: Path, what: str,
+                    defines: tuple[str, ...] = ()) -> tuple[Path, str]:
     """Compile ``src`` into ``build_dir/<stem>_<hash>.so`` unless this
-    source was built before.
+    source was built before, with NVCC_FLAGS and ``defines`` (``-D``
+    flags that select a variant of a kernel).
 
     Returns the library's path and the compiler's ``-Xptxas -v`` report
     (registers, shared memory and spills of every instantiation), which is
     kept beside the library.  ``what`` names the kernel in errors."""
+    flags = [*NVCC_FLAGS, *defines]
     text = b"".join(p.read_bytes() for p in sorted(src.parent.glob("*.cu")))
-    tag = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    tag = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:12]
     lib = build_dir / f"{stem}_{tag}.so"
     log = lib.with_suffix(".log")
     if not lib.exists():
         build_dir.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(what), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        proc = subprocess.run([_nvcc(what), *flags, "-o", str(tmp), str(src)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
         log.write_text(proc.stdout + proc.stderr)
         os.replace(tmp, lib)
     return lib, log.read_text() if log.exists() else ""
+
+
+def sass_functions(lib: Path) -> dict[str, str]:
+    """The SASS of every kernel in a built library (``cuobjdump -sass``, from
+    the CUDA toolkit), as {mangled name: its instructions}."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(line)
+    return {n: "\n".join(body) for n, body in funcs.items()}

@@ -1,27 +1,31 @@
 """Kernel K5: the per-chunk transfer operators of one long block on the
-card, its wrapper, its plain PyTorch version and its build.
+card, its wrapper, its plain PyTorch versions and its build.
 
 K5 (``csrc/operators.cu``) replaces the Pallas TPU kernel
-``tools/exp_opkernel.py:97 chunk_operators_fused``.  It computes
+``tools/exp_opkernel.py:97 chunk_operators_fused``.  Its contract is
 :func:`chunk_operators`, the port of ``itrails_tpu/hmm/longseq.py:38``,
 over a (C, L) token matrix: from ``G = I``, for each column of a chunk,
 ``G <- (G @ a) * e(tok)`` followed by a division by the max entry, whose
 log is added to the chunk's log scale; a PAD column keeps G and adds
-nothing.  The operators are in the tables' dtype, float32 or float64
-(K5 is instantiated on each), and the log scales float64.  The source
-note in ``operators.cu`` states what bounds K5 and what its design does
-about that.
+nothing.  The kernel computes the operators' rows instead, each from its
+unit vector with its own power-of-two scale (:func:`chunk_rows`, its plain
+version), and :func:`fold_rows` folds rows and exponent sums into the
+contract in f64.  The operators are in the tables' dtype, float32 or
+float64 (K5 is instantiated on each: FMAs in f32, the FP64 tensor cores in
+f64), and the log scales float64.  The source note in ``operators.cu``
+states what bounds K5 and what its design does about that.
 
 :func:`chunk_operators_fused` launches K5 for tensors on a CUDA device and
-runs :func:`chunk_operators` only for tensors on the CPU; a CUDA input
-that the kernel does not take raises.  The kernel is compiled with
-``nvcc`` for ``sm_90a`` at its first use (``hmm/_build.py``) and loaded
-with ``ctypes``.
+runs :func:`chunk_rows` only for tensors on the CPU, and folds either; a
+CUDA input that the kernel does not take raises.  The kernel is compiled
+with ``nvcc`` for ``sm_90a`` at its first use (``hmm/_build.py``) and
+loaded with ``ctypes``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -30,36 +34,47 @@ from itrails_tpu_torch.hmm._build import BUILD_DIR, CSRC, compile_library
 from itrails_tpu_torch.hmm.cuda_fwd import (bind_layout, check_inputs,
                                             emission_rows, padded_tables)
 
-__all__ = ["build", "chunk_operators", "chunk_operators_fused"]
+__all__ = ["MAX_CHUNK", "bind", "build", "chunk_operators",
+           "chunk_operators_fused", "chunk_rows", "dmma_fragments", "fold_rows",
+           "kernel_attributes", "launch_rows"]
 
 _SRC = CSRC / "operators.cu"
 _lib = None
+# Columns of a chunk at most: a row's exponent sum (int32) moves by at most
+# 1,022 a column.
+MAX_CHUNK = 1 << 20
 
 
-def build():
+def build(defines: tuple[str, ...] = ()):
     """Compile ``csrc/operators.cu`` unless this source was built before;
-    see :func:`itrails_tpu_torch.hmm._build.compile_library`."""
-    return compile_library(_SRC, "libk5_operators", BUILD_DIR, "kernel K5")
+    see :func:`itrails_tpu_torch.hmm._build.compile_library`.  ``defines``
+    select a variant (``-DK5_DMMA=1688``: the f64 product's mma shape)."""
+    stem = "libk5_operators" + "".join(d.replace("-D", "_").replace("=", "")
+                                       for d in defines)
+    return compile_library(_SRC, stem, BUILD_DIR, "kernel K5", defines)
+
+
+def bind(path):
+    """Loads a built K5 library and declares its exports."""
+    lib = ctypes.CDLL(str(path))
+    lib.k5_rows.restype = ctypes.c_int
+    lib.k5_rows.argtypes = ([ctypes.c_void_p] * 5
+                            + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    bind_layout(lib)
+    lib.k5_attributes.restype = ctypes.c_int
+    lib.k5_attributes.argtypes = [ctypes.c_int, ctypes.c_int,
+                                  ctypes.POINTER(ctypes.c_int)]
+    lib.k5_max_states.restype = ctypes.c_int
+    lib.k5_max_states.argtypes = []
+    lib.k5_error_string.restype = ctypes.c_char_p
+    lib.k5_error_string.argtypes = [ctypes.c_int]
+    return lib
 
 
 def _library():
     global _lib
     if _lib is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
-        lib.k5_operators.restype = ctypes.c_int
-        lib.k5_operators.argtypes = ([ctypes.c_void_p] * 6
-                                     + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        bind_layout(lib)
-        lib.k5_a_stride.restype = ctypes.c_int
-        lib.k5_a_stride.argtypes = [ctypes.c_int]
-        lib.k5_g_scratch.restype = ctypes.c_int
-        lib.k5_g_scratch.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.k5_max_states.restype = ctypes.c_int
-        lib.k5_max_states.argtypes = []
-        lib.k5_error_string.restype = ctypes.c_char_p
-        lib.k5_error_string.argtypes = [ctypes.c_int]
-        _lib = lib
+        _lib = bind(build()[0])
     return _lib
 
 
@@ -90,47 +105,139 @@ def chunk_operators(a, bfull, tokens, chunk: int):
     return g, logz
 
 
-def chunk_operators_fused(a, bfull, stream):
+def _row_exponents(mx):
+    """ilogb of each entry of ``mx`` (>= 0), floored at that of the dtype's
+    smallest normal and capped so that 2^-k is normal, read from the bits
+    as K5 reads them; int32."""
+    if mx.dtype == torch.float32:
+        e = (mx.view(torch.int32) >> 23) & 0xFF
+        return (e.clamp(1, 253) - 127).to(torch.int32)
+    e = (mx.view(torch.int64) >> 52) & 0x7FF
+    return (e.clamp(1, 2045) - 1023).to(torch.int32)
+
+
+def _pow2_neg(k, dtype):
+    """2^-k in ``dtype``, built from the bits (exact)."""
+    if dtype == torch.float32:
+        return ((127 - k).to(torch.int32) << 23).view(torch.float32)
+    return ((1023 - k).to(torch.int64) << 52).view(torch.float64)
+
+
+def chunk_rows(a, bfull, tokens, chunk: int):
+    """The rows of every chunk's transfer operator, each with its own
+    power-of-two scale: K5's plain version, in the dtype of ``a``.
+
+    ``tokens`` is 1-D, its length a multiple of ``chunk`` (pad with
+    PAD_TOKEN).  Row i of chunk c starts from the unit vector e_i; a
+    non-PAD column takes ``x <- (x @ a) * e(tok)``, then divides x by 2^k,
+    k the exponent of its max (floored at the dtype's smallest normal), and
+    adds k to the row's sum; a PAD column keeps both.  Returns ``(x, k)``:
+    the rows (C, M, M) and the exponent sums (C, M) int32."""
+    m = a.shape[0]
+    c = tokens.shape[0] // chunk
+    tok = tokens.reshape(c, chunk)
+    bt = bfull.T
+    x = torch.eye(m, dtype=a.dtype, device=a.device).repeat(c, 1, 1)
+    k = torch.zeros((c, m), dtype=torch.int32, device=a.device)
+    for t in range(chunk):
+        col = tok[:, t]
+        new = (x @ a) * emission_rows(bt, col)[:, None, :]
+        kt = _row_exponents(new.amax(dim=2))
+        live = (col != PAD_TOKEN)[:, None]
+        x = torch.where(live[..., None], new * _pow2_neg(kt, a.dtype)[..., None], x)
+        k = k + torch.where(live, kt, 0)
+    return x, k
+
+
+def fold_rows(x, k):
+    """Rows and exponent sums (:func:`chunk_rows`' contract) folded into
+    :func:`chunk_operators`' contract, in place of ``x``: with
+    ``lr = ln2 k`` in f64, ``logz_c = max_i (lr_ci + log max_j x_cij)`` and
+    ``ops_c = x_c exp(lr_c - logz_c)[:, None]`` in the dtype of ``x``.
+    Returns ``(ops, logz)``.  A chunk of PAD columns (x = I, k = 0) comes
+    out as exactly I with logz 0."""
+    lr = k.double() * math.log(2.0)
+    tiny = torch.finfo(x.dtype).tiny
+    top = torch.log(x.amax(dim=2).clamp(min=tiny).double()) + lr
+    logz = top.amax(dim=1)
+    return x.mul_(torch.exp(lr - logz[:, None]).to(x.dtype)[:, :, None]), logz
+
+
+def dmma_fragments(a):
+    """``a`` as the f64 kernel reads it: zero-padded to MP = 8 NT states and
+    laid out as (NT, NT, 8, 4, 2), entry (j, n, g, t, h) = a[8j + 2t + h,
+    8n + g]: the B fragments of the k steps (j, 0) and (j, 1) of the
+    8-column tile n, one double2 for lane 4g + t (``csrc/operators.cu``)."""
+    m = a.shape[0]
+    nt = -(-m // 8)
+    ap = torch.zeros((8 * nt, 8 * nt), dtype=a.dtype, device=a.device)
+    ap[:m, :m] = a
+    return ap.view(nt, 4, 2, nt, 8).permute(0, 3, 4, 1, 2).contiguous()
+
+
+def chunk_operators_fused(a, bfull, stream, *, rows: bool = False):
     """The transfer operators of a (C, L) token matrix, one chunk a row:
     ``(ops (C, M, M), logz (C,) float64)``, the contract of
-    :func:`chunk_operators`.
+    :func:`chunk_operators`, folded (:func:`fold_rows`) from K5's rows; with
+    ``rows`` the rows and exponent sums themselves, :func:`chunk_rows`'
+    contract.
 
     On CUDA this launches K5, which takes contiguous tables a (M, M) and
     bfull (M, 625), both float32 or both float64, with M <= 224, and
-    contiguous int32 tokens; ops are in the tables' dtype.  On the CPU the
-    plain version runs in the dtype of ``a``."""
+    contiguous int32 tokens with L <= MAX_CHUNK; ops are in the tables'
+    dtype.  On the CPU the plain version runs in the dtype of ``a``."""
     if stream.device.type == "cpu":
-        return chunk_operators(a, bfull, stream.reshape(-1), stream.shape[1])
+        x, k = chunk_rows(a, bfull, stream.reshape(-1), stream.shape[1])
+        return (x, k) if rows else fold_rows(x, k)
     if stream.device.type != "cuda":
         raise ValueError(f"chunk_operators_fused: unsupported device "
                          f"{stream.device}")
-    lib = _library()
-    check_inputs("chunk_operators_fused", a, bfull, None, stream,
-                 lib.k5_max_states(), (torch.float32, torch.float64))
-    dev = stream.device
-    c, length = stream.shape
-    m = a.shape[0]
-    f64 = int(a.dtype == torch.float64)
-
-    with torch.cuda.device(dev):
-        a_k, bt = padded_tables(lib, a, bfull, lib.k5_a_stride(m))
-        ops = torch.empty((c, m, m), dtype=a.dtype, device=dev)
-        logz = torch.empty((c,), dtype=torch.float64, device=dev)
-        scratch = lib.k5_g_scratch(m, f64)  # G in global memory, per chunk
-        gbuf = (torch.empty((c, scratch), dtype=a.dtype, device=dev)
-                if scratch else None)
-        rc = lib.k5_operators(a_k.data_ptr(), bt.data_ptr(), stream.data_ptr(),
-                              ops.data_ptr(), logz.data_ptr(),
-                              None if gbuf is None else gbuf.data_ptr(), c,
-                              length, m, f64,
-                              torch.cuda.current_stream(dev).cuda_stream)
-        if rc != 0:
-            raise RuntimeError("K5 launch failed: "
-                               f"{lib.k5_error_string(rc).decode()} ({rc})")
-        chunk_operators_fused.launches += 1
+    x, k = launch_rows(_library(), a, bfull, stream)
+    chunk_operators_fused.launches += 1
     chunk_operators_fused.calls += 1
-    return ops, logz
+    return (x, k) if rows else fold_rows(x, k)
 
 
 chunk_operators_fused.calls = 0  # calls that launched K5, since the last reset to 0
 chunk_operators_fused.launches = 0  # K5 launches, since the last reset to 0
+
+
+def launch_rows(lib, a, bfull, stream):
+    """Launches K5 from the library ``lib`` (:func:`bind`) on CUDA tensors:
+    ``(x, k)``, :func:`chunk_rows`' contract.  Counts nothing: callers
+    outside :func:`chunk_operators_fused` time variants with it."""
+    check_inputs("chunk_operators_fused", a, bfull, None, stream,
+                 lib.k5_max_states(), (torch.float32, torch.float64))
+    dev = stream.device
+    c, length = stream.shape
+    if length > MAX_CHUNK:
+        raise ValueError(f"chunk_operators_fused: chunks of {length} columns, "
+                         f"more than {MAX_CHUNK}")
+    m = a.shape[0]
+    f64 = int(a.dtype == torch.float64)
+    with torch.cuda.device(dev):
+        _, bt = padded_tables(lib, a, bfull, 0)
+        a_k = dmma_fragments(a) if f64 else a
+        x = torch.empty((c, m, m), dtype=a.dtype, device=dev)
+        k = torch.empty((c, m), dtype=torch.int32, device=dev)
+        rc = lib.k5_rows(a_k.data_ptr(), bt.data_ptr(), stream.data_ptr(),
+                         x.data_ptr(), k.data_ptr(), c, length, m, f64,
+                         torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("K5 launch failed: "
+                           f"{lib.k5_error_string(rc).decode()} ({rc})")
+    return x, k
+
+
+def kernel_attributes(m: int, f64: bool, lib=None):
+    """What K5 runs at ``m`` states on f32 or f64 tables, on the current
+    card: a dict of its registers and local (spill) bytes a thread, its rows
+    a warp, its warps a block at most, and its mma shape (884, 1684 or 1688;
+    0 in f32), from ``lib`` (default: K5's library)."""
+    lib = _library() if lib is None else lib
+    out = (ctypes.c_int * 5)()
+    rc = lib.k5_attributes(m, int(f64), out)
+    if rc != 0:
+        raise RuntimeError(f"K5 attributes: {lib.k5_error_string(rc).decode()}")
+    return dict(zip(("registers", "local_bytes", "rows_per_warp",
+                     "max_warps", "mma"), out))

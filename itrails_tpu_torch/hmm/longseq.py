@@ -7,8 +7,9 @@ products, ``alpha' = alpha @ (a diag(e_t))``: any run of columns collapses
 into one M x M transfer operator, the ordered product of its columns'
 operators.  :func:`forward_loglik_long` cuts the block's columns into
 chunks, builds every chunk's operator at once with kernel K5
-(``hmm/cuda_longseq.py``; its plain version :func:`chunk_operators` on the
-CPU), multiplies the operators in column order, and reads the
+(``hmm/cuda_longseq.py``: every row of every chunk with its own
+power-of-two scale, folded to one scale a chunk; its plain version
+:func:`~itrails_tpu_torch.hmm.cuda_longseq.chunk_rows` on the CPU), multiplies the operators in column order, and reads the
 log-likelihood from ``(pi * e_0) @ P``.  The sequential depth drops from T
 to the chunk's length.
 
@@ -83,9 +84,8 @@ def _group_product(operators, a, bfull, stream):
     operators replaces K5's output, and each level's products replace the
     level before, so at most 12 bytes an entry of the (C, M, M) operators
     are held at once: 3x their float32 bytes, 1.5x their float64 bytes
-    (K5's own output is then the f64 copy), plus, in float64 above
-    M = 96, K5's scratch for G while it runs (32S/M x the operators'
-    bytes).  ``operators`` is K5's wrapper or its plain version."""
+    (K5's own output is then the f64 copy); K5 folds its rows in place.
+    ``operators`` is K5's wrapper or its plain version."""
     ops, logz = operators(a, bfull, stream)
     ops = ops.double()
     z = logz.sum()
@@ -128,8 +128,10 @@ def forward_loglik_long_plain(a, bfull, pi, tokens, *, chunk: int = CHUNK):
 
 
 def _plain_operators(a, bfull, stream):
-    """K5's plain version with the wrapper's signature, on any device."""
-    return chunk_operators(a, bfull, stream.reshape(-1), stream.shape[1])
+    """K5's plain version (its rows, folded) with the wrapper's signature,
+    on any device: on the CPU, the wrapper itself."""
+    return cuda_longseq.fold_rows(*cuda_longseq.chunk_rows(
+        a, bfull, stream.reshape(-1), stream.shape[1]))
 
 
 def chunk_matrix(tokens, lo, hi, chunk):

@@ -2,18 +2,22 @@
 package, on the CPU; kernel K5 and the gradient route against their plain
 versions on the card.
 
-Tolerances: K5's plain version ``chunk_operators`` against the JAX
+Tolerances: the contract ``chunk_operators`` against the JAX
 ``longseq.chunk_operators`` in f64 at rtol 1e-12 (the same operations in
-the same order); in f32 against the Pallas kernel
+the same order), and K5's plain version ``chunk_rows`` folded
+(``fold_rows``) against it at atol 1e-12 on the operators (max entry 1) and
+rtol 1e-12 on the log scales (power-of-two scales are exact; the rounding
+is the products' and the fold's); in f32 both against the Pallas kernel
 ``tools/exp_opkernel.chunk_operators_fused(..., interpret=True)``, after
 folding each to one max-normalized operator and one log scale per chunk,
 at atol 5e-5 and rtol 1e-6 (the Pallas kernel reads its emissions from a
 split-bf16 table and rescales rows every four columns).
 ``forward_loglik_long`` against the JAX function and the sequential forward
 in f64 at rtol 1e-9, as tests/test_longseq.py holds the JAX function.  On
-the card, K5 against the plain version in f64 at atol 5e-5 on the
-operators and rtol 1e-6 on the log scales (f32 products over one chunk),
-and K5 on f64 tables at atol 1e-10 and rtol 1e-12.
+the card, K5 against the contract in f64 at atol 5e-5 on the operators and
+rtol 1e-6 on the log scales (f32 products over one chunk), and K5 on f64
+tables at atol 1e-10 and rtol 1e-12; K5's rows against ``chunk_rows`` in
+f64 at the same gates, each row brought to the reference's exponent sum.
 
 The gradient route ``forward_loglik_long_and_grads`` in f64 against
 ``jax.value_and_grad(forward_loglik_long_remat)``: loglik rtol 1e-10, every
@@ -110,6 +114,151 @@ def test_chunk_operators_match_the_pallas_kernel_in_f32():
 
 
 @pytest.mark.parametrize("tag", ["1x2", "3x3"])
+def test_chunk_rows_folded_match_jax_in_f64(tag):
+    """K5's plain version, its rows folded, against the JAX contract; the
+    all-PAD chunk is exactly the identity with log scale 0."""
+    from itrails_tpu.hmm import longseq as jax_longseq
+    from itrails_tpu_torch.hmm import cuda_longseq
+
+    (a, bfull, _), (ta, tb, _) = _tables(tag)
+    tok = _stream(6, 40, seed=3)
+    x, k = cuda_longseq.chunk_rows(ta, tb, torch.as_tensor(tok.reshape(-1)), 40)
+    ops, logz = cuda_longseq.fold_rows(x, k)
+    ops_ref, logz_ref = jax_longseq.chunk_operators(
+        jnp.asarray(a), jnp.asarray(bfull), jnp.asarray(tok.reshape(-1)), 40)
+    assert ops.dtype == torch.float64 and logz.dtype == torch.float64
+    np.testing.assert_allclose(ops.numpy(), np.asarray(ops_ref), atol=1e-12)
+    np.testing.assert_allclose(logz.numpy(), np.asarray(logz_ref), rtol=1e-12)
+    assert torch.equal(ops[2], torch.eye(a.shape[0], dtype=torch.float64))
+    assert float(logz[2]) == 0.0
+
+
+def test_chunk_rows_match_the_pallas_kernel_in_f32():
+    """K5's plain version's rows, each with its log scale ln2 k, folded as
+    the Pallas kernel's per-row form is folded."""
+    from itrails_tpu_torch.hmm import cuda_longseq
+    from tools.exp_opkernel import chunk_operators_fused as pallas_operators
+
+    (a, bfull, _), (ta, tb, _) = _tables("3x3", torch.float32)
+    tok = _stream(8, 64, seed=4)
+    x, k = cuda_longseq.chunk_rows(ta, tb, torch.as_tensor(tok.reshape(-1)), 64)
+    p_ops, p_logz = pallas_operators(
+        jnp.asarray(a, jnp.float32), jnp.asarray(bfull, jnp.float32),
+        jnp.asarray(tok), chunk=64, cb=8, interpret=True)
+    want_ops, want_logz = _fold_rows(p_ops, p_logz)
+    got_ops, got_logz = _fold_rows(x.numpy(), k.numpy() * np.log(2.0))
+    np.testing.assert_allclose(got_ops, want_ops, atol=5e-5)
+    np.testing.assert_allclose(got_logz, want_logz, rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_an_all_pad_chunk_folds_to_the_identity(dtype):
+    """Rows of PAD columns stay the unit vectors with exponent sum 0, and
+    fold to exactly I with log scale 0, beside chunks that do move."""
+    from itrails_tpu_torch.hmm import cuda_longseq
+
+    _, (a, bfull, _) = _tables("3x3", dtype)
+    m = a.shape[0]
+    tok = _stream(4, 16, seed=10)  # chunk 2 is all PAD too
+    tok[1] = -1
+    x, k = cuda_longseq.chunk_rows(a, bfull, torch.as_tensor(tok.reshape(-1)), 16)
+    assert torch.equal(x[1], torch.eye(m, dtype=dtype))
+    assert torch.equal(k[1], torch.zeros(m, dtype=torch.int32))
+    ops, logz = cuda_longseq.chunk_operators_fused(a, bfull, torch.as_tensor(tok))
+    assert torch.equal(ops[1], torch.eye(m, dtype=dtype)) and float(logz[1]) == 0.0
+    assert float(logz[0]) < 0.0 and float(logz[3]) < 0.0
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12),
+                                        (torch.float32, 1e-5)])
+def test_a_row_far_below_the_max_row_folds_as_the_contract(dtype, rtol):
+    """State 0 keeps to itself with emission 1e-3 a column, so after ten
+    columns row 0 of the operator lies ~1e-28 below the max: its own
+    scale keeps its rows, and the fold gives the contract's entry (rtol
+    1e-12 in f64; 1e-5 in f32, ten f32 products and the fold's rounding)."""
+    from itrails_tpu_torch.hmm import cuda_longseq
+
+    m = 6
+    rng = np.random.default_rng(11)
+    a = np.zeros((m, m))
+    a[0, 0] = 1.0
+    rest = rng.random((m - 1, m - 1)) + np.eye(m - 1)
+    a[1:, 1:] = rest / rest.sum(1, keepdims=True)
+    bfull = rng.random((m, 625)) * 0.5 + 0.5
+    bfull[0] = 1e-3
+    ta, tb = (torch.as_tensor(v, dtype=dtype) for v in (a, bfull))
+    tok = torch.as_tensor(rng.integers(0, 625, size=(2, 10)).astype(np.int32))
+    x, k = cuda_longseq.chunk_rows(ta, tb, tok.reshape(-1), 10)
+    assert float(x[:, 0, 0].min()) >= 1.0  # row 0 carries its own scale
+    ops, logz = cuda_longseq.fold_rows(x, k)
+    ref, logz_ref = cuda_longseq.chunk_operators(ta.double(), tb.double(),
+                                                 tok.reshape(-1), 10)
+    assert 1e-31 < float(ref[:, 0, 0].max()) < 1e-27
+    np.testing.assert_allclose(ops[:, 0].double().numpy(), ref[:, 0].numpy(),
+                               rtol=rtol, atol=0)
+    np.testing.assert_allclose(ops.double().numpy(), ref.numpy(), atol=rtol)
+    np.testing.assert_allclose(logz.numpy(), logz_ref.numpy(), rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_exponent_sums_are_exact_integers(dtype):
+    """With a = 0.5 P (P a permutation) and emissions that are powers of
+    two, every row is one entry of an exact power of two: x is 1 there and
+    k the exponent of the exact product, taken by hand."""
+    from itrails_tpu_torch.hmm import cuda_longseq
+
+    m, length = 7, 30
+    rng = np.random.default_rng(12)
+    perm = rng.permutation(m)
+    a = 0.5 * np.eye(m)[perm]
+    expo = rng.integers(0, 21, size=(m, 625))
+    bfull = np.ldexp(1.0, -expo)
+    tok = rng.integers(0, 625, size=(3, length)).astype(np.int32)
+    tok[1, 5:12] = -1
+    x, k = cuda_longseq.chunk_rows(torch.as_tensor(a, dtype=dtype),
+                                   torch.as_tensor(bfull, dtype=dtype),
+                                   torch.as_tensor(tok.reshape(-1)), length)
+    assert k.dtype == torch.int32
+    for c in range(3):
+        for i in range(m):
+            state, want = i, 0
+            for t in tok[c]:
+                if t < 0:
+                    continue
+                state = int(np.flatnonzero(a[state])[0])
+                want += -1 - int(expo[state, t])
+            row = np.zeros(m)
+            row[state] = 1.0
+            assert int(k[c, i]) == want
+            assert np.array_equal(x[c, i].double().numpy(), row)
+
+
+@pytest.mark.parametrize("m", [1, 5, 27, 36])
+def test_dmma_fragments_give_the_product(m):
+    """The f64 kernel's product, emulated on its fragments: k step (j, h)
+    takes state 8j + 2t + h from lane (g, t)'s own accumulator of the last
+    column, and lane (g', t) supplies a[8j + 2t + h, 8n + g'] for tile n;
+    summed over the steps it is X @ a, exactly on integers."""
+    from itrails_tpu_torch.hmm import cuda_longseq
+
+    rng = np.random.default_rng(m)
+    a = rng.integers(0, 9, (m, m)).astype(np.float64)
+    fr = cuda_longseq.dmma_fragments(torch.as_tensor(a)).numpy()
+    nt = fr.shape[0]
+    assert fr.shape == (nt, nt, 8, 4, 2) and nt == -(-m // 8)
+    x = np.zeros((16, 8 * nt))
+    x[:, :m] = rng.integers(0, 9, (16, m))
+    got = np.zeros((16, 8 * nt))
+    for j in range(nt):
+        for h in range(2):
+            for t in range(4):
+                # (16 rows) x (n, g') += X[:, 8j+2t+h] * fr[j, n, g', t, h]
+                got += x[:, 8 * j + 2 * t + h, None] * fr[j, :, :, t, h].reshape(-1)
+    np.testing.assert_array_equal(got[:, :m], x[:, :m] @ a)
+    assert not got[:, m:].any()
+
+
+@pytest.mark.parametrize("tag", ["1x2", "3x3"])
 def test_forward_loglik_long_matches_jax_and_the_sequential_forward(tag):
     from itrails_tpu.hmm import longseq as jax_longseq
     from itrails_tpu_torch.hmm import decoders, longseq
@@ -188,6 +337,8 @@ def test_grouped_fold_equals_one_group(monkeypatch):
 
 
 def test_cpu_calls_run_the_plain_version_and_count_no_launch():
+    """On the CPU the wrapper is K5's plain version: its rows, and those
+    rows folded."""
     from itrails_tpu_torch.hmm import cuda_longseq
 
     _, (a, bfull, _) = _tables("1x2")
@@ -195,10 +346,13 @@ def test_cpu_calls_run_the_plain_version_and_count_no_launch():
     before = (cuda_longseq.chunk_operators_fused.calls,
               cuda_longseq.chunk_operators_fused.launches)
     got = cuda_longseq.chunk_operators_fused(a, bfull, tok)
-    want = cuda_longseq.chunk_operators(a, bfull, tok.reshape(-1), 16)
+    rows = cuda_longseq.chunk_operators_fused(a, bfull, tok, rows=True)
+    want_rows = cuda_longseq.chunk_rows(a, bfull, tok.reshape(-1), 16)
+    want = cuda_longseq.fold_rows(*cuda_longseq.chunk_rows(a, bfull,
+                                                           tok.reshape(-1), 16))
     assert (cuda_longseq.chunk_operators_fused.calls,
             cuda_longseq.chunk_operators_fused.launches) == before
-    for x, y in zip(got, want):
+    for x, y in zip(got + rows, want + want_rows):
         assert torch.equal(x, y)
 
 
@@ -343,8 +497,11 @@ def _random_tables(m, dev):
     return [torch.as_tensor(x, device=dev) for x in (a, bfull, pi)]
 
 
+K5_STATES = [27, 36, 96, 133, 160, 182, 224]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [27, 36, 133, 182, 224])
+@pytest.mark.parametrize("m", K5_STATES)
 def test_k5_matches_plain_on_the_card(cuda_device, m):
     from itrails_tpu_torch.hmm import cuda_longseq
 
@@ -364,10 +521,11 @@ def test_k5_matches_plain_on_the_card(cuda_device, m):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [27, 96, 133, 160, 182, 224])
+@pytest.mark.parametrize("m", K5_STATES)
 def test_k5_in_f64_matches_plain_on_the_card(cuda_device, m):
-    """K5 on f64 tables, a and G in shared memory (M <= 96), a in L2
-    (M <= 160) and G in a global scratch too (M > 160)."""
+    """K5 on f64 tables: 16-row tiles with the rows in registers (M <= 64)
+    or staged in shared memory (M <= 136), 8-row tiles (M <= 160), and a's
+    fragments read from L2 (M > 160)."""
     from itrails_tpu_torch.hmm import cuda_longseq
 
     a, bfull, _ = _random_tables(m, cuda_device)
@@ -385,6 +543,81 @@ def test_k5_in_f64_matches_plain_on_the_card(cuda_device, m):
                                rtol=1e-12)
     assert torch.equal(ops[2], torch.eye(m, dtype=torch.float64,
                                          device=cuda_device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 5e-5, 1e-6),
+                                             (torch.float64, 1e-10, 1e-12)])
+@pytest.mark.parametrize("m", [27, 133])
+def test_k5_tiles_that_mix_chunks_on_the_card(cuda_device, m, dtype, atol, rtol):
+    """7 chunks: C M is not a multiple of a warp's 8 or 16 rows, so tiles
+    hold rows of two chunks, with different tokens, PAD runs in different
+    places and an all-PAD chunk beside live ones."""
+    from itrails_tpu_torch.hmm import cuda_longseq
+
+    a, bfull, _ = _random_tables(m, cuda_device)
+    tok = _stream(7, 96, seed=m + 1)
+    tok[3, 40:90] = -1
+    tok[4, :7] = -1
+    tok[5, 1::2] = -1
+    assert (7 * m) % 16 and (7 * m) % 8
+    tok = torch.as_tensor(tok, device=cuda_device)
+    ops, logz = cuda_longseq.chunk_operators_fused(a.to(dtype).contiguous(),
+                                                   bfull.to(dtype).contiguous(), tok)
+    ops_ref, logz_ref = cuda_longseq.chunk_operators(a, bfull, tok.reshape(-1), 96)
+    assert ops.dtype == dtype
+    np.testing.assert_allclose(ops.double().cpu().numpy(), ops_ref.cpu().numpy(),
+                               atol=atol)
+    np.testing.assert_allclose(logz.cpu().numpy(), logz_ref.cpu().numpy(),
+                               rtol=rtol)
+    assert torch.equal(ops[2], torch.eye(m, dtype=dtype, device=cuda_device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 5e-5),
+                                        (torch.float64, 1e-10)])
+@pytest.mark.parametrize("m", [27, 133, 182])
+def test_k5_rows_match_chunk_rows_on_the_card(cuda_device, m, dtype, atol):
+    """The kernel's rows and exponent sums against its plain version in f64
+    on the same tables.  Where a row's max lies near a power of two the two
+    may take exponents one apart, so each row is brought to the reference's
+    sum (exactly, by a power of two) before the rows are compared."""
+    from itrails_tpu_torch.hmm import cuda_longseq
+
+    a, bfull, _ = _random_tables(m, cuda_device)
+    a, bfull = a.to(dtype).contiguous(), bfull.to(dtype).contiguous()
+    tok = torch.as_tensor(_stream(5, 128, seed=m + 2), device=cuda_device)
+    x, k = cuda_longseq.chunk_operators_fused(a, bfull, tok, rows=True)
+    x_ref, k_ref = cuda_longseq.chunk_rows(a.double(), bfull.double(),
+                                           tok.reshape(-1), 128)
+    assert x.dtype == dtype and k.dtype == torch.int32 and x.shape == x_ref.shape
+    assert int((k - k_ref).abs().max()) <= 1
+    got = torch.ldexp(x.double(), (k - k_ref).double()[..., None])
+    np.testing.assert_allclose(got.cpu().numpy(), x_ref.cpu().numpy(), atol=atol)
+    assert torch.equal(k[2], torch.zeros_like(k[2]))
+
+
+@pytest.mark.gpu
+def test_k5_f64_issues_dmma_and_no_block_barrier_in_its_loop(cuda_device):
+    """Every f64 instantiation of K5 runs its product on the FP64 tensor
+    cores (DMMA), no f32 one does, and every one has one block barrier, the
+    one before its column loop."""
+    import re
+
+    from itrails_tpu_torch.hmm import _build, cuda_longseq
+
+    path, _ = cuda_longseq.build()
+    funcs = {n: body for n, body in _build.sass_functions(path).items()
+             if "k5_rows" in n}
+    f64 = [n for n in funcs if "k5_rows_f64" in n]
+    f32 = [n for n in funcs if "k5_rows_f32" in n]
+    assert len(f64) == 28 and len(f32) == 7
+    for n in f64:
+        assert "DMMA" in funcs[n], n
+    for n in f32:
+        assert "DMMA" not in funcs[n] and "HMMA" not in funcs[n], n
+    for n, body in funcs.items():
+        assert len(re.findall(r"\bBAR\.SYNC", body)) == 1, n
 
 
 @pytest.mark.gpu
