@@ -5,11 +5,6 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-(``python3 chip_smoke.py --k5-variants [DEFINES ...]`` instead builds K5
-once for each argument, a set of ``-D`` flags such as ``"-DK5_DMMA=1688"``
-(default: the three mma shapes of the FP64 tensor cores), and times each in
-f64 and f32 on phase 2's chunks.)
-
 Phases, one result line each (every line starts with the card's name and
 power limit):
 
@@ -874,7 +869,7 @@ def phase_k5(card, dev, m_label, n_ab, n_abc, seed, reps):
     rounding of the tables alone moves the operators by ~5e-5."""
     import torch
 
-    from itrails_tpu_torch.hmm import cuda_longseq
+    from itrails_tpu_torch.hmm import cuda_longseq, longseq
 
     a, bfull, pi, b = build_tables(n_ab, n_abc, dev)
     m = a.shape[0]
@@ -929,6 +924,12 @@ def phase_k5(card, dev, m_label, n_ab, n_abc, seed, reps):
     ms64 = cuda_ms(lambda: cuda_longseq.chunk_operators_fused(a, bfull, tok),
                    reps)
     bound64_ms, bound64_by = k5_bound_ms(m, tok, size=8)
+    # the same columns cut into the gradient route's chunks
+    tok_g = tok.reshape(-1, longseq.GRAD_CHUNK)
+    ms_g = cuda_ms(lambda: cuda_longseq.chunk_operators_fused(a32, b32, tok_g),
+                   reps)
+    ms64_g = cuda_ms(lambda: cuda_longseq.chunk_operators_fused(a, bfull, tok_g),
+                     reps)
     # a yardstick, no library_ms: one cuBLAS product of every row of every
     # chunk by a, (C M, M) @ (M, M), times the chunk's columns
     rows32, rows64 = ops.reshape(-1, m), ops.reshape(-1, m).double()
@@ -945,7 +946,9 @@ def phase_k5(card, dev, m_label, n_ab, n_abc, seed, reps):
           f"the all-PAD chunk the identity with scale 0; K5 {ms:.4f} ms (mean "
           f"of {reps}, {launches} launches), plain f64 {plain_ms:.1f} ms (one "
           f"call, host clock, no yardstick), bound {bound_ms:.4f} ms "
-          f"({bound_by}), {bound_ms / ms:.1%} of bound; cuBLAS yardstick "
+          f"({bound_by}), {bound_ms / ms:.1%} of bound; the same columns "
+          f"in {tok_g.shape[0]} chunks of {tok_g.shape[1]} {ms_g:.4f} ms; "
+          f"cuBLAS yardstick "
           f"(({n_chunks * m}, {m}) @ ({m}, {m}) x {chunk}) {yard_ms:.4f} ms; "
           f"rows kernel {att['registers']} registers, {att['local_bytes']} "
           f"local bytes a thread, {att['rows_per_warp']} rows a warp, up to "
@@ -955,11 +958,12 @@ def phase_k5(card, dev, m_label, n_ab, n_abc, seed, reps):
           f"{logz64_err:.3g} (gate {VALUE64_RTOL:g}, vs the plain version on "
           f"the same f64 tables); K5 f64 {ms64:.4f} ms (mean of {reps}), "
           f"{ms64 / ms:.2f}x f32, f64 bound {bound64_ms:.4f} ms "
-          f"({bound64_by}), {bound64_ms / ms64:.1%} of bound; cuBLAS "
+          f"({bound64_by}), {bound64_ms / ms64:.1%} of bound; in "
+          f"{tok_g.shape[0]} chunks of {tok_g.shape[1]} {ms64_g:.4f} ms; cuBLAS "
           f"yardstick {yard64_ms:.4f} ms; rows kernel {att64['registers']} "
           f"registers, {att64['local_bytes']} local bytes a thread, "
           f"{att64['rows_per_warp']} rows a warp, up to {att64['max_warps']} "
-          f"warps a block, mma m{att64['mma']}")
+          f"warps a block")
     return {"max_abs_err": ops64_err, "ms": ms64, "plain_ms": plain_ms,
             "bound_ms": bound64_ms, "bound_by": bound64_by}
 
@@ -1983,64 +1987,6 @@ def phase_long_grad(card, dev, cli):
           + "; ".join(sweep))
 
 
-def k5_variants(card, dev, variants, reps=10):
-    """K5 built with each set of ``-D`` flags in ``variants`` (e.g.
-    ``-DK5_DMMA=1688``: the f64 product's mma shape, m8n8k4 884, m16n8k4
-    1684 or m16n8k8 1688), all at once: whether each builds, its f64 SASS's
-    DMMA kinds, and its time in f64 and f32 on phase 2's chunks at M = 27
-    and M = 133, each held against the f64 plain version at phase 2's
-    gates."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    import torch
-
-    from itrails_tpu_torch.hmm import _build, cuda_longseq
-
-    cases = []
-    for seed, (label, n_ab, n_abc, _, _) in enumerate(K1_SHAPES):
-        a, bfull, pi, b = build_tables(n_ab, n_abc, dev)
-        tok = k5_tokens(dev, a, b, pi, seed)
-        a32, b32 = a.float().contiguous(), bfull.float().contiguous()
-        ref = cuda_longseq.chunk_operators(a, bfull, tok.reshape(-1), tok.shape[1])
-        ref32 = cuda_longseq.chunk_operators(a32.double(), b32.double(),
-                                             tok.reshape(-1), tok.shape[1])
-        cases.append((label, (a.contiguous(), bfull.contiguous(), ref, VALUE64_RTOL),
-                      (a32, b32, ref32, OPS_ATOL), tok))
-    with ThreadPoolExecutor(len(variants)) as pool:
-        jobs = [pool.submit(cuda_longseq.build, tuple(v.split())) for v in variants]
-        built = []
-        for v, job in zip(variants, jobs):
-            try:
-                built.append((v, job.result()[0]))
-            except RuntimeError as err:
-                print(f"{card} | K5 {v}: does not build: "
-                      f"{str(err).splitlines()[-1][:300]}")
-    for v, path in built:
-        lib = cuda_longseq.bind(path)
-        kinds = sorted({w for n, body in _build.sass_functions(path).items()
-                        if "k5_rows_f64" in n for w in body.split()
-                        if w.startswith("DMMA")})
-        parts = []
-        for label, *dtypes, tok in cases:
-            for a, bfull, (ops_ref, logz_ref), gate in dtypes:
-                ops, logz = cuda_longseq.fold_rows(
-                    *cuda_longseq.launch_rows(lib, a, bfull, tok))
-                err = float((ops.double() - ops_ref).abs().max())
-                lerr = float(((logz - logz_ref).abs()
-                              / logz_ref.abs().clamp(min=1.0)).max())
-                ms = cuda_ms(lambda: cuda_longseq.launch_rows(lib, a, bfull, tok),
-                             reps)
-                f64 = a.dtype == torch.float64
-                att = cuda_longseq.kernel_attributes(a.shape[0], f64, lib)
-                parts.append(
-                    f"{label} M={a.shape[0]} {'f64' if f64 else 'f32'} "
-                    f"{ms:.4f} ms ({att['registers']} registers, "
-                    f"{att['local_bytes']} local bytes, {att['rows_per_warp']} "
-                    f"rows a warp), max abs err {err:.3g} / {lerr:.3g} (gate "
-                    f"{gate:g}{'' if err <= gate else ': MISSED'})")
-        print(f"{card} | K5 {v} ({' '.join(kinds)}): " + "; ".join(parts))
-
-
 def main():
     import torch
 
@@ -2057,10 +2003,6 @@ def main():
     print(f"{card} | torch {torch.__version__} cuda {torch.version.cuda} | "
           f"{torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
-    if sys.argv[1:2] == ["--k5-variants"]:
-        k5_variants(card, dev, sys.argv[2:] or
-                    ["-DK5_DMMA=884", "-DK5_DMMA=1684", "-DK5_DMMA=1688"])
-        return 0
     try:
         return run_phases(card, dev, t_start)
     finally:  # no process outlives the script

@@ -57,10 +57,9 @@
 //   f32 does not use TF32 tensor cores: they keep ~3 digits.
 // * f64, on the FP64 tensor cores (k5_rows_f64): the product is a
 //   tall-skinny GEMM, (C M, M) @ (M, M), a tile of 16 (or 8) rows at a
-//   time, with mma.sync m16n8k4 f64 (K5_DMMA 1684, the default; 884 and
-//   1688 build m8n8k4 and m16n8k8: all three are sm_90 shapes that ptxas
-//   12.9 takes, chip_smoke.py --k5-variants times them).  M is padded to
-//   MP = 8 NT.  Thread (g, t) of a warp (lane 4g + t) holds the
+//   time, with mma.sync m16n8k4 f64 on 16-row tiles and m8n8k4 on 8-row
+//   ones (m16n8k4 timed fastest of the sm_90 shapes that ptxas 12.9 takes,
+//   PERF.md §6).  M is padded to MP = 8 NT.  Thread (g, t) of a warp (lane 4g + t) holds the
 //   accumulator entries (g, 8n + 2t + h) and (g + 8, 8n + 2t + h), h = 0, 1,
 //   of every 8-column tile n.  The k steps are ordered so that k step
 //   (j, h) takes, in lane (g, t), the state 8j + 2t + h: then the A
@@ -107,10 +106,6 @@
 
 #include "fwd.cu"  // K1's table layout (k1_table_width), load_emission, load4, kPad
 
-#ifndef K5_DMMA
-#define K5_DMMA 1684
-#endif
-
 namespace {
 
 constexpr int kSmemBlock = 232448;  // shared memory a block may use (227 KB)
@@ -118,7 +113,7 @@ constexpr int kSmemBlock = 232448;  // shared memory a block may use (227 KB)
 // states a lane: short tiles where the card holds every tile at once (M <=
 // 64, latency-bound), 8 rows where a's loads serve more rows and the
 // tiles fill the SMs in whole waves (M = 133: 50.4 ms against 54.7 with
-// 4 rows, chip_smoke.py --k5-variants, PERF.md).
+// 4 rows, PERF.md §6).
 template <int S>
 __host__ __device__ constexpr int f32_rows() {
   return S <= 2 ? 4 : 8;
@@ -356,7 +351,6 @@ __device__ __forceinline__ void dmma884(double (&c)[2], double a, double b) {
       : "d"(a), "d"(b));
 }
 
-#if K5_DMMA == 1684
 __device__ __forceinline__ void dmma1684(double (&c)[2][2], double a0, double a1,
                                          double b) {
   asm volatile(
@@ -365,17 +359,6 @@ __device__ __forceinline__ void dmma1684(double (&c)[2][2], double a0, double a1
       : "+d"(c[0][0]), "+d"(c[0][1]), "+d"(c[1][0]), "+d"(c[1][1])
       : "d"(a0), "d"(a1), "d"(b));
 }
-#elif K5_DMMA == 1688
-__device__ __forceinline__ void dmma1688(double (&c)[2][2], double a0, double a1,
-                                         double a2, double a3, double b0,
-                                         double b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+d"(c[0][0]), "+d"(c[0][1]), "+d"(c[1][0]), "+d"(c[1][1])
-      : "d"(a0), "d"(a1), "d"(a2), "d"(a3), "d"(b0), "d"(b1));
-}
-#endif
 
 // c[rh][i] += sum over the two k steps (j, h) of x[rh][h] b.h, for the
 // RH 8-row halves of a tile: (g + 8 rh, 8n + 2t + i) += x(g + 8 rh,
@@ -387,18 +370,8 @@ __device__ __forceinline__ void dmma_step(double (&c)[RH][2],
     dmma884(c[0], x[0][0], b.x);
     dmma884(c[0], x[0][1], b.y);
   } else {
-#if K5_DMMA == 1688
-    dmma1688(c, x[0][0], x[1][0], x[0][1], x[1][1], b.x, b.y);
-#elif K5_DMMA == 1684
     dmma1684(c, x[0][0], x[1][0], b.x);
     dmma1684(c, x[0][1], x[1][1], b.y);
-#else
-#pragma unroll
-    for (int rh = 0; rh < RH; ++rh) {
-      dmma884(c[rh], x[rh][0], b.x);
-      dmma884(c[rh], x[rh][1], b.y);
-    }
-#endif
   }
 }
 
@@ -704,8 +677,7 @@ int k5_rows(const void* a, const void* bt, const int* tokens, void* x, int* k,
 
 // What K5 runs at M states on f32 (f64 == 0) or f64 tables: out[0]
 // registers a thread, out[1] local (spill) bytes a thread, out[2] rows a
-// warp, out[3] warps a block at most, out[4] the mma shape (884, 1684 or
-// 1688; 0 in f32).
+// warp, out[3] warps a block at most.
 int k5_attributes(int M, int f64, int* out) {
   if (M < 1 || M > 32 * kMaxS) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch_k5(M, f64, [&](auto cfg) {
@@ -716,7 +688,6 @@ int k5_attributes(int M, int f64, int* out) {
     out[1] = static_cast<int>(at.localSizeBytes);
     out[2] = cfg.rows_per_warp;
     out[3] = cfg.max_warps;
-    out[4] = f64 == 0 ? 0 : (cfg.rows_per_warp == 8 ? 884 : K5_DMMA);
     return 0;
   });
 }

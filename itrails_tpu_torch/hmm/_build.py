@@ -33,24 +33,22 @@ def _nvcc(what: str) -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def compile_library(src: Path, stem: str, build_dir: Path, what: str,
-                    defines: tuple[str, ...] = ()) -> tuple[Path, str]:
+def compile_library(src: Path, stem: str, build_dir: Path,
+                    what: str) -> tuple[Path, str]:
     """Compile ``src`` into ``build_dir/<stem>_<hash>.so`` unless this
-    source was built before, with NVCC_FLAGS and ``defines`` (``-D``
-    flags that select a variant of a kernel).
+    source was built before.
 
     Returns the library's path and the compiler's ``-Xptxas -v`` report
     (registers, shared memory and spills of every instantiation), which is
     kept beside the library.  ``what`` names the kernel in errors."""
-    flags = [*NVCC_FLAGS, *defines]
     text = b"".join(p.read_bytes() for p in sorted(src.parent.glob("*.cu")))
-    tag = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:12]
+    tag = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     lib = build_dir / f"{stem}_{tag}.so"
     log = lib.with_suffix(".log")
     if not lib.exists():
         build_dir.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(what), *flags, "-o", str(tmp), str(src)],
+        proc = subprocess.run([_nvcc(what), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")

@@ -34,7 +34,7 @@ from itrails_tpu_torch.hmm._build import BUILD_DIR, CSRC, compile_library
 from itrails_tpu_torch.hmm.cuda_fwd import (bind_layout, check_inputs,
                                             emission_rows, padded_tables)
 
-__all__ = ["MAX_CHUNK", "bind", "build", "chunk_operators",
+__all__ = ["MAX_CHUNK", "build", "chunk_operators",
            "chunk_operators_fused", "chunk_rows", "dmma_fragments", "fold_rows",
            "kernel_attributes", "launch_rows"]
 
@@ -45,17 +45,14 @@ _lib = None
 MAX_CHUNK = 1 << 20
 
 
-def build(defines: tuple[str, ...] = ()):
+def build():
     """Compile ``csrc/operators.cu`` unless this source was built before;
-    see :func:`itrails_tpu_torch.hmm._build.compile_library`.  ``defines``
-    select a variant (``-DK5_DMMA=1688``: the f64 product's mma shape)."""
-    stem = "libk5_operators" + "".join(d.replace("-D", "_").replace("=", "")
-                                       for d in defines)
-    return compile_library(_SRC, stem, BUILD_DIR, "kernel K5", defines)
+    see :func:`itrails_tpu_torch.hmm._build.compile_library`."""
+    return compile_library(_SRC, "libk5_operators", BUILD_DIR, "kernel K5")
 
 
-def bind(path):
-    """Loads a built K5 library and declares its exports."""
+def _bind(path):
+    """Loads the built K5 library and declares its exports."""
     lib = ctypes.CDLL(str(path))
     lib.k5_rows.restype = ctypes.c_int
     lib.k5_rows.argtypes = ([ctypes.c_void_p] * 5
@@ -74,7 +71,7 @@ def bind(path):
 def _library():
     global _lib
     if _lib is None:
-        _lib = bind(build()[0])
+        _lib = _bind(build()[0])
     return _lib
 
 
@@ -175,37 +172,36 @@ def dmma_fragments(a):
     return ap.view(nt, 4, 2, nt, 8).permute(0, 3, 4, 1, 2).contiguous()
 
 
-def chunk_operators_fused(a, bfull, stream, *, rows: bool = False):
+def chunk_operators_fused(a, bfull, stream):
     """The transfer operators of a (C, L) token matrix, one chunk a row:
     ``(ops (C, M, M), logz (C,) float64)``, the contract of
-    :func:`chunk_operators`, folded (:func:`fold_rows`) from K5's rows; with
-    ``rows`` the rows and exponent sums themselves, :func:`chunk_rows`'
-    contract.
+    :func:`chunk_operators`, folded (:func:`fold_rows`) from K5's rows.
 
     On CUDA this launches K5, which takes contiguous tables a (M, M) and
     bfull (M, 625), both float32 or both float64, with M <= 224, and
     contiguous int32 tokens with L <= MAX_CHUNK; ops are in the tables'
     dtype.  On the CPU the plain version runs in the dtype of ``a``."""
     if stream.device.type == "cpu":
-        x, k = chunk_rows(a, bfull, stream.reshape(-1), stream.shape[1])
-        return (x, k) if rows else fold_rows(x, k)
+        return fold_rows(*chunk_rows(a, bfull, stream.reshape(-1),
+                                     stream.shape[1]))
     if stream.device.type != "cuda":
         raise ValueError(f"chunk_operators_fused: unsupported device "
                          f"{stream.device}")
-    x, k = launch_rows(_library(), a, bfull, stream)
+    x, k = launch_rows(a, bfull, stream)
     chunk_operators_fused.launches += 1
     chunk_operators_fused.calls += 1
-    return (x, k) if rows else fold_rows(x, k)
+    return fold_rows(x, k)
 
 
 chunk_operators_fused.calls = 0  # calls that launched K5, since the last reset to 0
 chunk_operators_fused.launches = 0  # K5 launches, since the last reset to 0
 
 
-def launch_rows(lib, a, bfull, stream):
-    """Launches K5 from the library ``lib`` (:func:`bind`) on CUDA tensors:
-    ``(x, k)``, :func:`chunk_rows`' contract.  Counts nothing: callers
-    outside :func:`chunk_operators_fused` time variants with it."""
+def launch_rows(a, bfull, stream):
+    """Launches K5 on CUDA tensors: ``(x, k)``, :func:`chunk_rows`'
+    contract, unfolded.  Counts nothing: :func:`chunk_operators_fused`
+    counts its launches."""
+    lib = _library()
     check_inputs("chunk_operators_fused", a, bfull, None, stream,
                  lib.k5_max_states(), (torch.float32, torch.float64))
     dev = stream.device
@@ -229,15 +225,14 @@ def launch_rows(lib, a, bfull, stream):
     return x, k
 
 
-def kernel_attributes(m: int, f64: bool, lib=None):
+def kernel_attributes(m: int, f64: bool):
     """What K5 runs at ``m`` states on f32 or f64 tables, on the current
     card: a dict of its registers and local (spill) bytes a thread, its rows
-    a warp, its warps a block at most, and its mma shape (884, 1684 or 1688;
-    0 in f32), from ``lib`` (default: K5's library)."""
-    lib = _library() if lib is None else lib
-    out = (ctypes.c_int * 5)()
+    a warp and its warps a block at most."""
+    lib = _library()
+    out = (ctypes.c_int * 4)()
     rc = lib.k5_attributes(m, int(f64), out)
     if rc != 0:
         raise RuntimeError(f"K5 attributes: {lib.k5_error_string(rc).decode()}")
     return dict(zip(("registers", "local_bytes", "rows_per_warp",
-                     "max_warps", "mma"), out))
+                     "max_warps"), out))

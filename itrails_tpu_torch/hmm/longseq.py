@@ -8,10 +8,10 @@ into one M x M transfer operator, the ordered product of its columns'
 operators.  :func:`forward_loglik_long` cuts the block's columns into
 chunks, builds every chunk's operator at once with kernel K5
 (``hmm/cuda_longseq.py``: every row of every chunk with its own
-power-of-two scale, folded to one scale a chunk; its plain version
-:func:`~itrails_tpu_torch.hmm.cuda_longseq.chunk_rows` on the CPU), multiplies the operators in column order, and reads the
-log-likelihood from ``(pi * e_0) @ P``.  The sequential depth drops from T
-to the chunk's length.
+power-of-two scale, folded to one scale a chunk; on the CPU its plain
+version ``cuda_longseq.chunk_rows``, folded), multiplies the operators in
+column order, and reads the log-likelihood from ``(pi * e_0) @ P``.  The
+sequential depth drops from T to the chunk's length.
 
 The log-normalizer is carried in f64 from end to end: K5's per-chunk log
 scales, each product's log scale and the final log.  A chromosome-scale
@@ -128,10 +128,8 @@ def forward_loglik_long_plain(a, bfull, pi, tokens, *, chunk: int = CHUNK):
 
 
 def _plain_operators(a, bfull, stream):
-    """K5's plain version (its rows, folded) with the wrapper's signature,
-    on any device: on the CPU, the wrapper itself."""
-    return cuda_longseq.fold_rows(*cuda_longseq.chunk_rows(
-        a, bfull, stream.reshape(-1), stream.shape[1]))
+    """K5's plain version with the wrapper's signature, on any device."""
+    return chunk_operators(a, bfull, stream.reshape(-1), stream.shape[1])
 
 
 def chunk_matrix(tokens, lo, hi, chunk):

@@ -277,7 +277,10 @@ def test_forward_loglik_long_matches_jax_and_the_sequential_forward(tag):
         plain = longseq.forward_loglik_long_plain(*tables, torch.as_tensor(tok),
                                                   chunk=chunk)
         assert got.dtype == torch.float64 and got.dim() == 0
-        assert torch.equal(plain, got)  # on the CPU K5's wrapper is the plain version
+        # on the CPU K5's wrapper folds its plain rows; the plain route
+        # builds the contract's operators
+        np.testing.assert_allclose(float(plain), float(got), rtol=1e-12,
+                                   err_msg=f"T={t_len} chunk={chunk}")
         np.testing.assert_allclose(float(got), float(ref), rtol=1e-9,
                                    err_msg=f"T={t_len} chunk={chunk}")
         np.testing.assert_allclose(float(got), float(seq), rtol=1e-9,
@@ -337,8 +340,7 @@ def test_grouped_fold_equals_one_group(monkeypatch):
 
 
 def test_cpu_calls_run_the_plain_version_and_count_no_launch():
-    """On the CPU the wrapper is K5's plain version: its rows, and those
-    rows folded."""
+    """On the CPU the wrapper is K5's plain version, its rows folded."""
     from itrails_tpu_torch.hmm import cuda_longseq
 
     _, (a, bfull, _) = _tables("1x2")
@@ -346,13 +348,11 @@ def test_cpu_calls_run_the_plain_version_and_count_no_launch():
     before = (cuda_longseq.chunk_operators_fused.calls,
               cuda_longseq.chunk_operators_fused.launches)
     got = cuda_longseq.chunk_operators_fused(a, bfull, tok)
-    rows = cuda_longseq.chunk_operators_fused(a, bfull, tok, rows=True)
-    want_rows = cuda_longseq.chunk_rows(a, bfull, tok.reshape(-1), 16)
     want = cuda_longseq.fold_rows(*cuda_longseq.chunk_rows(a, bfull,
                                                            tok.reshape(-1), 16))
     assert (cuda_longseq.chunk_operators_fused.calls,
             cuda_longseq.chunk_operators_fused.launches) == before
-    for x, y in zip(got + rows, want + want_rows):
+    for x, y in zip(got, want):
         assert torch.equal(x, y)
 
 
@@ -587,7 +587,7 @@ def test_k5_rows_match_chunk_rows_on_the_card(cuda_device, m, dtype, atol):
     a, bfull, _ = _random_tables(m, cuda_device)
     a, bfull = a.to(dtype).contiguous(), bfull.to(dtype).contiguous()
     tok = torch.as_tensor(_stream(5, 128, seed=m + 2), device=cuda_device)
-    x, k = cuda_longseq.chunk_operators_fused(a, bfull, tok, rows=True)
+    x, k = cuda_longseq.launch_rows(a, bfull, tok)
     x_ref, k_ref = cuda_longseq.chunk_rows(a.double(), bfull.double(),
                                            tok.reshape(-1), 128)
     assert x.dtype == dtype and k.dtype == torch.int32 and x.shape == x_ref.shape
