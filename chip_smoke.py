@@ -12,13 +12,17 @@ power limit):
    (``csrc/grad.cu``), K3 (``csrc/viterbi.cu``), K4
    (``csrc/posterior.cu``) and K5 (``csrc/operators.cu``) with nvcc for
    sm_90a, all at once, and print their registers, shared memory and
-   spills; K5's SASS: DMMA in every f64 instantiation, none in an f32 one,
-   one block barrier in each;
+   spills; the SASS of the row kernels of K1 and K5 (``csrc/rows.cuh``):
+   DMMA in every f64 instantiation, none in an f32 one, one block barrier
+   in each;
 2. K1 and then K2 against their plain PyTorch versions (f64, on the card)
    on the 3x3 model (M=27, 4096 x 8192 tokens) and the 7x7 model (M=133,
    1024 x 2048), built on the card, with ragged PAD tails and all-PAD
    windows; time, launches and the card's least time for the same work;
-   K1 in f32 and in f64 (per-window loglik at rtol 1e-10);
+   K1 in f32 and in f64 (per-window loglik at rtol 1e-10), also on the
+   optimize CLI's bucket shape (100 x 10112 at M=27), with the SM clocks a
+   column of one tile take at the card's top SM clock, its registers and
+   its tile;
    then K3 against its f32 plain version on the card at the same shapes
    and on a batch with exact ties (two exchangeable states), paths equal
    exactly, with its peak pointer-table bytes; then K4 against its f64
@@ -109,6 +113,7 @@ without the rest of the repository beside it, the script exits non-zero
 and prints no result.
 """
 
+import ctypes
 import json
 import os
 import subprocess
@@ -130,6 +135,9 @@ START = dict(t_1=2.4e-3, t_2=4e-4, t_upper=7.450693855e-3, N_AB=5e-4,
              N_ABC=5e-4, r=1.0)
 # phase 2: (label, n_int_AB, n_int_ABC, windows, columns), for K1 and K2
 K1_SHAPES = [("3x3", 3, 3, 4096, 8192), ("7x7", 7, 7, 1024, 2048)]
+# phase 2: K1 on the optimize CLI's bucket of phase 3 (100 blocks of 10 kb,
+# packed to a multiple of 128 columns)
+K1_BUCKET = ("3x3 CLI bucket", 3, 3, 100, 10_112)
 # phase 3: short blocks, their length, and how many more such rows are
 # joined into the one long block (32 x 10 kb = 320 kb > 262,144)
 CLI_LAYOUT = (100, 10_000, 32)
@@ -206,6 +214,15 @@ class SmokeFailure(Exception):
 def check(cond, what):
     if not cond:
         raise SmokeFailure(what)
+
+
+def sm_clock_mhz():
+    """The card's top SM clock in MHz (nvidia-smi's clocks.max.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
 
 
 def card_line():
@@ -457,19 +474,33 @@ def phase_k1(card, dev, m_label, n_ab, n_abc, w, t, seed, reps):
           f"{alpha64_err:.3g} (rtol {VALUE64_RTOL:g})")
     ms64 = cuda_ms(lambda: cuda_fwd.forward_fused(a, bfull, pi, tok), reps)
     bound64_ms, bound64_by = k1_bound_ms(m, tok, size=8)
+    # every tile runs at once (one wave), so one tile's column takes the
+    # kernel's time over the T - 1 columns
+    mhz = sm_clock_mhz()
+    clocks, clocks64 = (1e3 * x * mhz / max(t - 1, 1) for x in (ms, ms64))
+    att, att64 = (cuda_fwd.kernel_attributes(w, m, f64) for f64 in (False, True))
+
+    def tile(at):
+        return (f"{at['registers']} registers, {at['local_bytes']} local "
+                f"bytes a thread, {at['rows_per_warp']} rows a warp, up to "
+                f"{at['max_warps']} warps a block")
+
     print(f"{card} | phase 2 K1 {m_label} M={m} W={w} T={t}: per-window ll "
           f"max rel err {rel:.3g} (rtol 1e-5: f32 normalizers summed over T "
           f"steps), total rel err {total_rel:.3g} (rtol 1e-6: f64 sum of f32 "
           f"windows), alpha max abs err {alpha_err:.3g}; K1 {ms:.4f} ms "
           f"(mean of {reps}, {launches} launches), "
           f"plain f64 {plain_ms:.1f} ms (no yardstick), bound {bound_ms:.4f} "
-          f"ms ({bound_by}), {bound_ms / ms:.1%} of bound")
+          f"ms ({bound_by}), {bound_ms / ms:.1%} of bound; {clocks:.0f} SM "
+          f"clocks a column of one tile at {mhz:.0f} MHz; rows kernel "
+          f"{tile(att)}")
     print(f"{card} | phase 2 K1 {m_label} M={m} W={w} T={t} f64: per-window "
           f"ll max rel err {rel64:.3g}, alpha max abs err {alpha64_err:.3g} "
           f"(gate {VALUE64_RTOL:g}, vs the plain f64 version); K1 f64 "
           f"{ms64:.4f} ms (mean of {reps}), {ms64 / ms:.2f}x f32, f64 bound "
           f"{bound64_ms:.4f} ms ({bound64_by}), {bound64_ms / ms64:.1%} of "
-          f"bound")
+          f"bound; {clocks64:.0f} SM clocks a column of one tile; rows "
+          f"kernel {tile(att64)}")
     return {"max_abs_err": float(abs64.max()), "ms": ms64,
             "plain_ms": plain_ms, "bound_ms": bound64_ms,
             "bound_by": bound64_by}
@@ -832,31 +863,38 @@ def k5_tokens(dev, a, b, pi, seed):
     return tok
 
 
-def k5_sass(card):
-    """K5's SASS (cuobjdump): every f64 instantiation runs its product on the
-    FP64 tensor cores (DMMA), no f32 one does, and each has one block-wide
-    barrier, the one before its column loop."""
+def rows_sass(card):
+    """The SASS (cuobjdump) of the row kernels of K1 and K5
+    (``csrc/rows.cuh``), each in its own library: every f64 instantiation
+    runs its product on the FP64 tensor cores (DMMA), no f32 one does, and
+    each has one block-wide barrier, the one before its column loop.  K5
+    has 28 f64 instantiations (one tile a size), K1 45 (8-row tiles at every
+    size, 16-row ones up to M = 136); each 7 f32 ones."""
     import re
 
-    from itrails_tpu_torch.hmm import _build, cuda_longseq
+    from itrails_tpu_torch.hmm import _build, cuda_fwd, cuda_longseq
 
-    path, _ = cuda_longseq.build()
-    funcs = {n: body for n, body in _build.sass_functions(path).items()
-             if "k5_rows" in n}
-    f64 = {n: body for n, body in funcs.items() if "k5_rows_f64" in n}
-    dmma = [len(re.findall(r"\bDMMA", body)) for body in f64.values()]
-    kinds = sorted({k for body in f64.values()
-                    for k in re.findall(r"\bDMMA\.\S+", body)})
-    bars = [len(re.findall(r"\bBAR\.SYNC", body)) for body in funcs.values()]
-    check(len(f64) == 28 and len(funcs) == 35 and min(dmma) > 0,
-          f"K5's f64 instantiations without DMMA: {dmma}")
-    check(not any(re.search(r"\b[DH]MMA", body) for n, body in funcs.items()
-                  if n not in f64), "an f32 K5 instantiation uses tensor cores")
-    check(set(bars) == {1}, f"K5 kernels' block barriers: {sorted(set(bars))}")
-    print(f"{card} | phase 1 K5 SASS (cuobjdump -sass): {len(f64)} f64 "
-          f"instantiations, each with DMMA ({min(dmma)}-{max(dmma)} a kernel: "
-          f"{', '.join(kinds)}), {len(funcs) - len(f64)} f32 ones with none; "
-          f"one BAR.SYNC in each (before the column loop)")
+    for name, mod, tag, n_f64 in (("K1", cuda_fwd, "k1_rows", 45),
+                                  ("K5", cuda_longseq, "k5_rows", 28)):
+        path, _ = mod.build()
+        funcs = {n: body for n, body in _build.sass_functions(path).items()
+                 if tag in n}
+        f64 = {n: body for n, body in funcs.items() if f"{tag}_f64" in n}
+        dmma = [len(re.findall(r"\bDMMA", body)) for body in f64.values()]
+        kinds = sorted({k for body in f64.values()
+                        for k in re.findall(r"\bDMMA\.\S+", body)})
+        bars = [len(re.findall(r"\bBAR\.SYNC", body)) for body in funcs.values()]
+        check(len(f64) == n_f64 and len(funcs) == n_f64 + 7 and min(dmma) > 0,
+              f"{name}'s f64 instantiations without DMMA: {dmma}")
+        check(not any(re.search(r"\b[DH]MMA", body) for n, body in funcs.items()
+                      if n not in f64),
+              f"an f32 {name} instantiation uses tensor cores")
+        check(set(bars) == {1},
+              f"{name} kernels' block barriers: {sorted(set(bars))}")
+        print(f"{card} | phase 1 {name} SASS (cuobjdump -sass): {len(f64)} f64 "
+              f"instantiations, each with DMMA ({min(dmma)}-{max(dmma)} a "
+              f"kernel: {', '.join(kinds)}), {len(funcs) - len(f64)} f32 ones "
+              f"with none; one BAR.SYNC in each (before the column loop)")
 
 
 def phase_k5(card, dev, m_label, n_ab, n_abc, seed, reps):
@@ -1987,6 +2025,38 @@ def phase_long_grad(card, dev, cli):
           + "; ".join(sweep))
 
 
+def k1_tiles(card, dev):
+    """K1 in f64 with 8-row and with 16-row tiles, and by its rule, at the
+    shapes of phase 2 and the CLI's bucket, each checked against the plain
+    f64 version: the measurement that chose the tile-height rule."""
+    import torch
+
+    from itrails_tpu_torch.hmm import cuda_fwd
+
+    lib = cuda_fwd._library()
+    lib.k1_set_tile_rows.argtypes = [ctypes.c_int]
+    mhz = sm_clock_mhz()
+    for seed, (label, n_ab, n_abc, w, t) in enumerate(K1_SHAPES + [K1_BUCKET]):
+        a, bfull, pi, _ = build_tables(n_ab, n_abc, dev)
+        a, bfull, pi = (x.contiguous() for x in (a, bfull, pi))
+        tok = padded_tokens(dev, w, t, seed)
+        _, ll_ref = cuda_fwd.forward_fused_plain(a, bfull, pi, tok)
+        parts = []
+        for rows in (0, 8, 16):
+            lib.k1_set_tile_rows(rows)
+            _, ll = cuda_fwd.forward_fused(a, bfull, pi, tok)
+            rel = float(((ll - ll_ref).abs() / ll_ref.abs().clamp(min=1.0)).max())
+            check(rel <= VALUE64_RTOL, f"K1 tiles {rows}: off by {rel:.3g}")
+            ms = cuda_ms(lambda: cuda_fwd.forward_fused(a, bfull, pi, tok), 10)
+            parts.append(f"{rows or 'rule'} rows {ms:.4f} ms "
+                         f"({1e3 * ms * mhz / (t - 1):.0f} clocks a column)")
+        lib.k1_set_tile_rows(0)
+        a32, b32, p32 = (x.float().contiguous() for x in (a, bfull, pi))
+        ms32 = cuda_ms(lambda: cuda_fwd.forward_fused(a32, b32, p32, tok), 10)
+        print(f"{card} | K1 tiles {label} M={a.shape[0]} W={w} T={t}: f64 "
+              + ", ".join(parts) + f"; f32 {ms32:.4f} ms")
+
+
 def main():
     import torch
 
@@ -2003,6 +2073,11 @@ def main():
     print(f"{card} | torch {torch.__version__} cuda {torch.version.cuda} | "
           f"{torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
+    if sys.argv[1:] == ["--k1-tiles"]:
+        phase_build(card)
+        rows_sass(card)
+        k1_tiles(card, dev)
+        return 0
     try:
         return run_phases(card, dev, t_start)
     finally:  # no process outlives the script
@@ -2016,9 +2091,10 @@ def run_phases(card, dev, t_start):
     import torch
 
     phase_build(card)
-    k5_sass(card)
+    rows_sass(card)
     k1 = [phase_k1(card, dev, *shape, seed=seed, reps=10)
           for seed, shape in enumerate(K1_SHAPES)]
+    phase_k1(card, dev, *K1_BUCKET, seed=len(K1_SHAPES), reps=10)
     k2 = [phase_k2(card, dev, *shape, seed=seed, reps=10, k1_ms=rec["ms"])
           for seed, (shape, rec) in enumerate(zip(K1_SHAPES, k1))]
     for seed, (label, n_ab, n_abc, _, _) in enumerate(K1_SHAPES):

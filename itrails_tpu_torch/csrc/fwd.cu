@@ -1,27 +1,24 @@
-// Kernel K1: the Rabiner-scaled forward recurrence of the coalescent HMM,
-// written for Hopper (sm_90a).
+// The scaled forward recurrence of the coalescent HMM on Hopper (sm_90a):
+// kernel K1, and the one-warp-a-window forward kernel that K2 and K4 run.
 //
-// Replaces itrails_tpu/hmm/pallas_fwd.py:327 forward_fused (its Pallas body
-// is _kernel, pallas_fwd.py:232).  For every window w of a (W, T) token
-// batch, columns 1..T-1 (column 0 is done by the wrapper):
+// * K1 (the second half of this file) computes a window batch's forward
+//   log-likelihood as rows of the tiles of csrc/rows.cuh, each window with
+//   exact power-of-two scales; its note is at its kernels below.
+// * forward_kernel (below, with Mat, forward_step and load_emission) is
+//   K2's forward (csrc/grad.cu) and K4's alpha pass (csrc/posterior.cu),
+//   and nothing else.  For every window w of a (W, T) token batch, columns
+//   1..T-1 (column 0 is done by the wrappers):
 //
-//   alpha_t = normalize((a^T alpha_{t-1}) * bfull[:, tok_t]),
-//   ll_w   += log(sum((a^T alpha_{t-1}) * bfull[:, tok_t])),
+//     alpha_t = normalize((a^T alpha_{t-1}) * bfull[:, tok_t]),
+//     ll_w   += log(sum((a^T alpha_{t-1}) * bfull[:, tok_t])),
 //
-// where a PAD token (-1) leaves alpha and ll unchanged.  Outputs: the
-// normalized final alpha (W, M) in the tables' scalar (float or double)
-// and the per-window loglik (W,) in f64, the value ll - comp of the
-// kernel's Kahan pair, so a long window's loglik keeps the compensation
-// (at ~1e8 nats one f32 ulp is 8).
+//   where a PAD token (-1) leaves alpha and ll unchanged.  Outputs: the
+//   normalized final alpha (W, M) in the tables' scalar (float or double)
+//   and the per-window loglik (W,) in f64, the value ll - comp of the
+//   kernel's Kahan pair, so a long window's loglik keeps the compensation
+//   (at ~1e8 nats one f32 ulp is 8).
 //
-// What bounds it on an H100: the product a^T alpha costs 2*M^2 flops per
-// column against 4 bytes of token traffic, so the kernel is bound by f32
-// FMA issue (67 TFLOP/s outside the tensor cores), not by memory: 33.5 M
-// columns need ~0.73 ms at M=27 and ~17.7 ms at M=133, while their 134 MB
-// of tokens take 0.04 ms at 3.35 TB/s.  The recurrence is sequential in t,
-// so the parallelism is across windows only.
-//
-// Design (simple and exact first; tensor cores are later work):
+// Design of forward_kernel (simple and exact first):
 // * one warp per window, eight windows per block; lane l owns states
 //   l, l+32, ..., so M <= 32*kMaxS;
 // * alpha lives in registers and in a per-warp shared-memory row that the
@@ -29,8 +26,8 @@
 //   the product; for M <= 32 each lane keeps its column of a in
 //   registers, above that a sits in shared memory with a row stride of
 //   32S + 1 (M=133: 103 KB).  The register form saves 28 shared-memory
-//   loads per column: at M=27 on an H100 80GB HBM3 (700 W) K1 takes
-//   9.04-9.08 ms for 4096 x 8192 columns and 132-133 ms for one
+//   loads per column: at M=27 on an H100 80GB HBM3 (700 W) the forward
+//   took 9.04-9.08 ms for 4096 x 8192 columns and 132-133 ms for one
 //   320,000-column window, against 10.45-10.50 ms and 228 ms with a in
 //   shared memory (chip_smoke.py, PERF.md);
 // * the emission row is a direct gather from the transposed table
@@ -42,26 +39,19 @@
 //   an f32 Kahan sum, so its rounding does not grow with T, and it leaves
 //   the kernel as the f64 value of the sum minus its compensation.
 //
-// The helpers below are templated on the scalar R.  K1 instantiates float
-// and double (the optimize CLI's value path at --precision float64, which
-// finite-difference methods need: their step moves the loglik by less than
-// the f32 recursion's rounding); K2 instantiates float only; K4
-// (csrc/posterior.cu) float and double; K5 (csrc/operators.cu) reuses Mat
-// and load_emission.  With G = true, Mat reads a from a zero-padded
+// The helpers below are templated on the scalar R.  K2 instantiates float
+// only, K4 float and double; K5 (csrc/operators.cu) and K1 reuse
+// load_emission.  With G = true, Mat reads a from a zero-padded
 // (32S, 32S + 1) copy in global memory (L2) instead of shared memory, for
 // the sizes where shared memory cannot hold it beside a kernel's other
-// rows: K1 and K4 in double above S = 5 (a_in_global).  In double the
-// bound is f64 issue, 67 TFLOP/s on the H100's FP64 tensor cores (NVIDIA
-// data sheet, SXM); this kernel's FMAs run outside them, at half that.
+// rows: K4 in double above S = 5 (a_in_global).
 //
-// Kernel K2 (csrc/grad.cu) includes this file: its forward launch is
-// forward_kernel with TC > 0, which also writes alpha at every chunk entry
-// of TC columns, and its backward recomputes chunks with forward_step and
-// reads a through Mat.  K1 instantiates TC = 0, which compiles the
-// checkpoint away.
+// K2's forward launch is forward_kernel with TC > 0, which also writes
+// alpha at every chunk entry of TC columns, and its backward recomputes
+// chunks with forward_step and reads a through Mat; K4's is TC = 1.
 //
-// Launch contract: the C entry point enqueues on the given stream, does
-// not synchronize, allocates nothing, and returns cudaGetLastError().
+// Launch contract: the C entry points enqueue on the given stream, do not
+// synchronize, allocate nothing, and return cudaGetLastError().
 
 #include <cuda_runtime.h>
 
@@ -76,7 +66,7 @@ constexpr int kFwdWarps = 8;  // windows per block of the forward kernel
 // the 132 SMs of an H100, where 76-78 registers allowed three blocks and
 // two waves.
 constexpr int kFwdBlocksPerSM = 4;
-constexpr int kMaxS = 7;      // states per lane of K1: M <= 224
+constexpr int kMaxS = 7;      // states per lane: M <= 224
 constexpr int kTokens = 625;  // alphabet size
 constexpr int kPad = -1;
 constexpr unsigned kFull = 0xffffffffu;
@@ -356,7 +346,7 @@ size_t forward_smem() {
          sizeof(R);
 }
 
-// Whether the forward kernel on scalar R (K1, K4) reads a from a padded
+// Whether the forward kernel on scalar R (K4) reads a from a padded
 // copy in global memory (L2): in double above S = 5 the (32S, 32S + 1)
 // copy no longer fits the 227 KB of shared memory a block may use beside
 // the warps' rows (S = 5: 206 KB of a and 10 KB of rows; S = 6: 296 KB of
@@ -371,22 +361,6 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
-}
-
-template <int S, typename R>
-int launch_k1(const void* a, const void* bt, const void* al0, const void* ll0,
-              const int* tokens, void* alpha_out, double* ll_out, int W,
-              int T, int M, cudaStream_t stream) {
-  constexpr bool G = a_in_global<S, R>();
-  const size_t smem = forward_smem<S, R, G>();
-  const cudaError_t err = allow_smem(forward_kernel<S, 0, R, G>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((W + kFwdWarps - 1) / kFwdWarps);
-  forward_kernel<S, 0, R, G><<<grid, kFwdWarps * 32, smem, stream>>>(
-      static_cast<const R*>(a), static_cast<const R*>(bt),
-      static_cast<const R*>(al0), static_cast<const R*>(ll0), tokens,
-      static_cast<R*>(alpha_out), ll_out, nullptr, W, T, M);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // Calls f with std::integral_constant<int, S> for S = (M + 31) / 32, the
@@ -406,6 +380,132 @@ int dispatch_s(int M, F&& f) {
 
 }  // namespace
 
+#include "rows.cuh"  // the row kernels of K1 and K5
+
+// ===================================================================== K1
+// Kernel K1: the scaled forward log-likelihood of a window batch, each
+// window a row of the tiles of csrc/rows.cuh (Start::kGiven).
+//
+// Replaces the Pallas TPU kernel itrails_tpu/hmm/pallas_fwd.py:327
+// forward_fused (its body is _kernel, pallas_fwd.py:232, which steps a
+// block of windows a column as one product on the matrix unit).  For every
+// window w of a (W, T) token batch, over columns 1..T-1 (column 0 is the
+// wrapper's, hmm/cuda_fwd.py), from x = x0[w] = pi * e(tok_{w,0}):
+//
+//   x <- (x @ a) * e(tok_t),  k = ilogb(max_j x_j),  x <- x 2^-k,
+//   ksum_w += k,
+//
+// where a PAD column keeps x and ksum, and a token outside the alphabet
+// zeroes x (the window's loglik is then -inf).  Outputs: the rows X (W, M)
+// in the tables' scalar and the exponent sums (W,) int32.  The wrapper
+// folds them into the contract in f64: ll_w = ln2 ksum_w +
+// log(sum_j X_wj) and alpha_w = X_w / sum_j X_wj; a window with no live
+// column after column 0 folds to column 0's own alpha and log-normalizer.
+//
+// What bounds it on an H100: per non-PAD column 2 M^2 + M operations (the
+// product and the emission) against 4 bytes of token in, and each window
+// writes one row and one sum, so K1 is bound by issue, not by memory: 33.5 M
+// columns need ~0.64 ms at M = 27 at 67 TFLOP/s (f32 outside the tensor
+// cores; f64 on the FP64 tensor cores) against 0.04 ms for their tokens at
+// 3.35 TB/s.  The recurrence is sequential in t; the parallelism is across
+// windows.
+//
+// Why rows with power-of-two scales.  One warp walking one window
+// (forward_kernel, K1's kernel before this one) paid, every column, fixed
+// work that does not grow with M: a 5-step shuffle reduction for the
+// normalizer (10 shuffles in f64), a division a state, a log and a Kahan
+// add that every lane computed, and the alpha row stored to shared memory
+// between two __syncwarp and read back as the product's broadcast operand.
+// At M = 27 the product was 32 FMAs a lane against ~100 instructions a
+// column (~51 SM clocks a window-column against ~4.4 at the bound), and in
+// f64 the division and the log are multi-instruction sequences on the
+// FP64 pipe, outside the tensor cores (2.07x the f32 time).  Here a
+// column's scale is its max's exponent, read from bits (exact; no log, no
+// division), the log is taken once a window by the wrapper, a tile of
+// windows shares each load of a, and in f64 the product runs on the FP64
+// tensor cores.
+//
+// Tile height (f64): 16 rows (mma m16n8k4) where ceil(W / 16) tiles fill
+// every SM sub-partition of the card (4 an SM) and M <= 136; else 8
+// (m8n8k4), which doubles the tiles where 16-row ones would leave
+// sub-partitions idle: at W = 4096, 256 tiles of 16 rows against 528
+// sub-partitions, and the optimize CLI's bucket (W = 100) has 7.  f32 takes
+// K5's tiles: 4 rows a warp at M <= 64, else 8.
+
+namespace {
+
+template <int S>
+__global__ void __launch_bounds__(f32_warps<S>() * 32, 1)
+k1_rows_f32(const float* __restrict__ a,       // (M, M)
+            const float* __restrict__ bt,      // (625, 32S), zero pad
+            const float* __restrict__ x0,      // (W, M) after column 0
+            const int* __restrict__ tokens,    // (W, T), PAD = -1
+            float* __restrict__ x_out,         // (W, M)
+            int* __restrict__ k_out,           // (W,)
+            int W, int T, int M) {
+  rows_f32<Start::kGiven, S>(a, bt, x0, tokens, x_out, k_out, W, T - 1, M);
+}
+
+template <int NT, int RH>
+__global__ void __launch_bounds__(kWarpsF64 * 32, 1)
+k1_rows_f64(const double2* __restrict__ afr,   // (NT, NT, 32) a's fragments
+            const double* __restrict__ bt,     // (625, width), zero pad
+            const double* __restrict__ x0,     // (W, M) after column 0
+            const int* __restrict__ tokens,    // (W, T), PAD = -1
+            double* __restrict__ x_out,        // (W, M)
+            int* __restrict__ k_out,           // (W,)
+            int W, int T, int M, int width) {
+  using Lay = F64Layout<NT, RH>;
+  rows_f64<Start::kGiven, NT, RH, Lay::XS, Lay::GB, Lay::EP>(
+      afr, bt, x0, tokens, x_out, k_out, W, T - 1, M, width);
+}
+
+// K1's 8-row halves a warp in f64 at W windows and NT 8-column tiles (the
+// tile-height rule of the note above).
+int k1_tile_rows = 0;  // measurement only: 8 or 16 overrides the rule
+int k1_halves(int W, int nt) {
+  if (k1_tile_rows != 0) return nt <= 17 && k1_tile_rows == 16 ? 2 : 1;
+  return nt <= 17 && (W + 15) / 16 >= 4 * sm_count() ? 2 : 1;
+}
+
+// Calls f with the Rows of K1's f64 instantiation at nt 8-column tiles and
+// rh 8-row halves a warp.
+template <int NT, typename F>
+int k1_dispatch_nt(int nt, int rh, F& f) {
+  if (nt == NT) {
+    if constexpr (NT <= 17) {
+      if (rh == 2)
+        return f(rows_config(k1_rows_f64<NT, 2>, 16, F64Layout<NT, 2>::kFixed,
+                             F64Layout<NT, 2>::kWarp, kWarpsF64));
+    }
+    return f(rows_config(k1_rows_f64<NT, 1>, 8, F64Layout<NT, 1>::kFixed,
+                         F64Layout<NT, 1>::kWarp, kWarpsF64));
+  }
+  if constexpr (NT < kMaxNT) {
+    return k1_dispatch_nt<NT + 1>(nt, rh, f);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Calls f with the Rows of the instantiation K1 runs on W windows of M
+// states on f32 (f64 == 0) or f64 tables.
+template <typename F>
+int dispatch_k1(int W, int M, int f64, F&& f) {
+  if (f64 != 0) {
+    const int nt = (M + 7) / 8;
+    return k1_dispatch_nt<1>(nt, k1_halves(W, nt), f);
+  }
+  return dispatch_s(M, [&](auto sc) {
+    constexpr int S = decltype(sc)::value;
+    constexpr size_t fixed = S > 1 ? sizeof(float) * 32 * S * 32 * S : 0;
+    return f(rows_config(k1_rows_f32<S>, f32_rows<S>(), fixed,
+                         sizeof(float) * f32_rows<S>() * 32 * S, f32_warps<S>()));
+  });
+}
+
+}  // namespace
+
 extern "C" {
 
 // Pad width of the transposed emission table bt for M states (32*S).
@@ -413,30 +513,59 @@ int k1_table_width(int M) { return 32 * ((M + 31) / 32); }
 
 int k1_max_states() { return 32 * kMaxS; }
 
-// Row stride of the zero-padded (32S, 32S + 1) copy of a that K1 and K4
-// read from global memory at M states in double (f64 != 0) or float, or 0
-// where they take a as the plain (M, M) matrix.
+// Row stride of the zero-padded (32S, 32S + 1) copy of a that K4 reads
+// from global memory at M states in double (f64 != 0) or float, or 0 where
+// it takes a as the plain (M, M) matrix.
 int k1_a_stride(int M, int f64) {
   const int S = (M + 31) / 32;
   return f64 != 0 && S > 5 ? 32 * S + 1 : 0;
 }
 
-// Every float argument is double where f64 != 0; ll_out is double always.
-int k1_forward(const void* a, const void* bt, const void* al0,
-               const void* ll0, const int* tokens, void* alpha_out,
-               double* ll_out, int W, int T, int M, int f64, void* stream) {
+// K1: the rows X (W, M) and exponent sums (W,) int32 of a (W, T) token
+// batch over columns 1..T-1, started from x0 (W, M).  f64 == 0: a is the
+// (M, M) float matrix and x0, X float; else a's (NT, NT, 32) double2
+// fragments and x0, X double.  bt is (625, k1_table_width(M)) in the
+// tables' scalar.
+int k1_forward(const void* a, const void* bt, const void* x0,
+               const int* tokens, void* x, int* k, int W, int T, int M,
+               int f64, void* stream) {
   if (W < 1 || T < 1 || M < 1 || M > 32 * kMaxS)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch_s(M, [&](auto sc) {
-    constexpr int S = decltype(sc)::value;
-    return f64 != 0
-               ? launch_k1<S, double>(a, bt, al0, ll0, tokens, alpha_out,
-                                      ll_out, W, T, M, s)
-               : launch_k1<S, float>(a, bt, al0, ll0, tokens, alpha_out,
-                                     ll_out, W, T, M, s);
+  const int width = k1_table_width(M);
+  return dispatch_k1(W, M, f64, [&](auto cfg) {
+    if constexpr (std::is_same_v<decltype(cfg.kernel), decltype(&k1_rows_f32<1>)>) {
+      return launch_rows(cfg, W, s, static_cast<const float*>(a),
+                         static_cast<const float*>(bt),
+                         static_cast<const float*>(x0), tokens,
+                         static_cast<float*>(x), k, W, T, M);
+    } else {
+      return launch_rows(cfg, W, s, static_cast<const double2*>(a),
+                         static_cast<const double*>(bt),
+                         static_cast<const double*>(x0), tokens,
+                         static_cast<double*>(x), k, W, T, M, width);
+    }
   });
 }
+
+// What K1 runs on W windows of M states on f32 (f64 == 0) or f64 tables:
+// out[0] registers a thread, out[1] local (spill) bytes a thread, out[2]
+// rows a warp, out[3] warps a block at most.
+int k1_attributes(int W, int M, int f64, int* out) {
+  if (W < 1 || M < 1 || M > 32 * kMaxS) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_k1(W, M, f64, [&](auto cfg) {
+    cudaFuncAttributes at;
+    const cudaError_t err = cudaFuncGetAttributes(&at, cfg.kernel);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out[0] = at.numRegs;
+    out[1] = static_cast<int>(at.localSizeBytes);
+    out[2] = cfg.rows_per_warp;
+    out[3] = cfg.max_warps;
+    return 0;
+  });
+}
+
+void k1_set_tile_rows(int rows) { k1_tile_rows = rows; }
 
 const char* k1_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -19,16 +19,15 @@
 // Beta at column T-1 is ones, or a given exit row per window: a window
 // that is one chunk of a long block then ends where the rest of the block
 // begins (the wrapper likewise starts its forward from a given entry row).
-// Outputs: the per-window loglik (W,) in f64 (K1's compensated sum), beta
+// Outputs: the per-window loglik (W,) in f64 (a compensated sum), beta
 // at the origin (W, 32*S), and per-block partial sums of dA (G, 32*S, 32*S)
 // and dB (G, 625, 32*S); the wrapper sums the partials over blocks in a
 // fixed order and does column 0.
 //
 // Two launches per call:
-// * the forward: K1's kernel (csrc/fwd.cu, included below) instantiated to
-//   also write alpha at every chunk entry into a checkpoint
-//   (n_chunks, W, 32*S) f32, chunks of kChunk columns, so K2's loglik is
-//   K1's to the bit;
+// * the forward: forward_kernel (csrc/fwd.cu, included below) instantiated
+//   to also write alpha at every chunk entry into a checkpoint
+//   (n_chunks, W, 32*S) f32, chunks of kChunk columns;
 // * k2_backward: one warp per window walks the chunks in reverse.  For each
 //   chunk it recomputes the chunk's alpha rows and their a^T alpha from the
 //   checkpoint into per-warp shared-memory rows, with the forward's own
@@ -53,13 +52,13 @@
 // The checkpoint design adds a fourth product, the recompute (8 M^2 done
 // per column) and the checkpoint's traffic (0.27 GB written and read back
 // at M = 27), in exchange for storing alpha once per chunk instead of once
-// per column.  Like K1 the recurrence
+// per column.  The recurrence
 // is sequential in t, so its parallelism is across windows.  A long block
 // is therefore never one window here: hmm/longseq.py cuts it into chunk
 // windows with boundary rows from K5's transfer operators, one warp a
 // chunk.
 //
-// Design (simple and exact first): the product forms of K1 (Mat: for
+// Design (simple and exact first): the product forms of fwd.cu (Mat: for
 // M <= 32 each lane keeps its column and its row of a in registers; above
 // that a sits in shared memory with a padded row stride, so both a^T x and
 // a x read it without bank conflicts); z is clamped at 1e-30 as on the TPU.
@@ -68,7 +67,7 @@
 // not synchronize, allocates nothing, and returns cudaGetLastError().  The
 // dA and dB partials must be zero on entry.
 
-#include "fwd.cu"  // K1: forward_kernel, Mat, forward_step and the helpers
+#include "fwd.cu"  // forward_kernel, Mat, forward_step and the helpers
 
 namespace {
 

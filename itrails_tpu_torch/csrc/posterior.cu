@@ -30,12 +30,12 @@
 // (hmm/decoders.py:posterior_stream).
 //
 // Design (simple and exact first):
-// * the forward is K1's own kernel (csrc/fwd.cu, included below),
+// * the forward is forward_kernel (csrc/fwd.cu, included below),
 //   instantiated with a checkpoint every column (TC = 1) and no loglik: it
 //   writes alpha_t into row t of the store (T, W, 32S) for t < T-1 and the
-//   final alpha into a (W, M) tensor, so K4's alpha are K1's bits;
-// * the reverse kernel has K1's shape: one warp per window, eight windows
-//   per block, lane l owning states l, l+32, ...; beta lives in registers
+//   final alpha into a (W, M) tensor;
+// * the reverse kernel has the forward's shape: one warp per window, eight
+//   windows per block, lane l owning states l, l+32, ...; beta lives in registers
 //   and in a per-warp shared row that Mat::at_x reads (a in registers at
 //   M <= 32, in shared memory above); each step reads the warp's alpha row
 //   (32S contiguous floats) and writes gamma over it;
@@ -61,7 +61,7 @@
 // Launch contract: the C entry points enqueue on the given stream, do not
 // synchronize, allocate nothing, and return cudaGetLastError().
 
-#include "fwd.cu"  // K1: forward_kernel, Mat, load_emission and the helpers
+#include "fwd.cu"  // forward_kernel, Mat, load_emission and the helpers
 
 namespace {
 

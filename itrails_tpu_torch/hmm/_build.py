@@ -3,9 +3,10 @@
 Each kernel source is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, at its first use, into
 ``build/itrails_tpu_torch/`` at the root of the checkout.  The file name
-carries a hash of every source in ``csrc/`` (``grad.cu`` includes
-``fwd.cu``) and the flags, so an edited source is never served by a stale
-library.  The libraries are loaded with ``ctypes``.
+carries a hash of every file in ``csrc/`` (the kernel sources include
+``fwd.cu``, which includes ``rows.cuh``) and the flags, so an edited source
+or header is never served by a stale library.  The libraries are loaded
+with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "compile_library", "sass_functions"]
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "compile_library",
+           "sass_functions", "source_tag"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "itrails_tpu_torch"
@@ -33,6 +35,15 @@ def _nvcc(what: str) -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def source_tag(csrc: Path) -> str:
+    """The hash a library's name carries: every file in ``csrc`` (each
+    file's name and bytes, in name order) and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(q for q in csrc.iterdir() if q.is_file()):
+        h.update(p.name.encode() + b"\0" + p.read_bytes())
+    return h.hexdigest()[:12]
+
+
 def compile_library(src: Path, stem: str, build_dir: Path,
                     what: str) -> tuple[Path, str]:
     """Compile ``src`` into ``build_dir/<stem>_<hash>.so`` unless this
@@ -41,8 +52,7 @@ def compile_library(src: Path, stem: str, build_dir: Path,
     Returns the library's path and the compiler's ``-Xptxas -v`` report
     (registers, shared memory and spills of every instantiation), which is
     kept beside the library.  ``what`` names the kernel in errors."""
-    text = b"".join(p.read_bytes() for p in sorted(src.parent.glob("*.cu")))
-    tag = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    tag = source_tag(src.parent)
     lib = build_dir / f"{stem}_{tag}.so"
     log = lib.with_suffix(".log")
     if not lib.exists():

@@ -32,7 +32,8 @@ import torch
 from itrails_tpu_torch.data.tokens import PAD_TOKEN
 from itrails_tpu_torch.hmm._build import BUILD_DIR, CSRC, compile_library
 from itrails_tpu_torch.hmm.cuda_fwd import (bind_layout, check_inputs,
-                                            emission_rows, padded_tables)
+                                            dmma_fragments, emission_rows,
+                                            padded_tables, scaled_rows)
 
 __all__ = ["MAX_CHUNK", "build", "chunk_operators",
            "chunk_operators_fused", "chunk_rows", "dmma_fragments", "fold_rows",
@@ -102,48 +103,23 @@ def chunk_operators(a, bfull, tokens, chunk: int):
     return g, logz
 
 
-def _row_exponents(mx):
-    """ilogb of each entry of ``mx`` (>= 0), floored at that of the dtype's
-    smallest normal and capped so that 2^-k is normal, read from the bits
-    as K5 reads them; int32."""
-    if mx.dtype == torch.float32:
-        e = (mx.view(torch.int32) >> 23) & 0xFF
-        return (e.clamp(1, 253) - 127).to(torch.int32)
-    e = (mx.view(torch.int64) >> 52) & 0x7FF
-    return (e.clamp(1, 2045) - 1023).to(torch.int32)
-
-
-def _pow2_neg(k, dtype):
-    """2^-k in ``dtype``, built from the bits (exact)."""
-    if dtype == torch.float32:
-        return ((127 - k).to(torch.int32) << 23).view(torch.float32)
-    return ((1023 - k).to(torch.int64) << 52).view(torch.float64)
-
-
 def chunk_rows(a, bfull, tokens, chunk: int):
     """The rows of every chunk's transfer operator, each with its own
     power-of-two scale: K5's plain version, in the dtype of ``a``.
 
     ``tokens`` is 1-D, its length a multiple of ``chunk`` (pad with
-    PAD_TOKEN).  Row i of chunk c starts from the unit vector e_i; a
-    non-PAD column takes ``x <- (x @ a) * e(tok)``, then divides x by 2^k,
-    k the exponent of its max (floored at the dtype's smallest normal), and
-    adds k to the row's sum; a PAD column keeps both.  Returns ``(x, k)``:
-    the rows (C, M, M) and the exponent sums (C, M) int32."""
+    PAD_TOKEN).  Row i of chunk c starts from the unit vector e_i and reads
+    the chunk's columns (:func:`cuda_fwd.scaled_rows`, K1's plain rows
+    too): a non-PAD column takes ``x <- (x @ a) * e(tok)``, then divides x
+    by 2^k, k the exponent of its max (floored at the dtype's smallest
+    normal), and adds k to the row's sum; a PAD column keeps both.  Returns
+    ``(x, k)``: the rows (C, M, M) and the exponent sums (C, M) int32."""
     m = a.shape[0]
     c = tokens.shape[0] // chunk
-    tok = tokens.reshape(c, chunk)
-    bt = bfull.T
-    x = torch.eye(m, dtype=a.dtype, device=a.device).repeat(c, 1, 1)
-    k = torch.zeros((c, m), dtype=torch.int32, device=a.device)
-    for t in range(chunk):
-        col = tok[:, t]
-        new = (x @ a) * emission_rows(bt, col)[:, None, :]
-        kt = _row_exponents(new.amax(dim=2))
-        live = (col != PAD_TOKEN)[:, None]
-        x = torch.where(live[..., None], new * _pow2_neg(kt, a.dtype)[..., None], x)
-        k = k + torch.where(live, kt, 0)
-    return x, k
+    x0 = torch.eye(m, dtype=a.dtype, device=a.device).repeat(c, 1)
+    tok = tokens.reshape(c, chunk).repeat_interleave(m, dim=0)
+    x, k = scaled_rows(x0, a, bfull, tok)
+    return x.view(c, m, m), k.view(c, m)
 
 
 def fold_rows(x, k):
@@ -158,18 +134,6 @@ def fold_rows(x, k):
     top = torch.log(x.amax(dim=2).clamp(min=tiny).double()) + lr
     logz = top.amax(dim=1)
     return x.mul_(torch.exp(lr - logz[:, None]).to(x.dtype)[:, :, None]), logz
-
-
-def dmma_fragments(a):
-    """``a`` as the f64 kernel reads it: zero-padded to MP = 8 NT states and
-    laid out as (NT, NT, 8, 4, 2), entry (j, n, g, t, h) = a[8j + 2t + h,
-    8n + g]: the B fragments of the k steps (j, 0) and (j, 1) of the
-    8-column tile n, one double2 for lane 4g + t (``csrc/operators.cu``)."""
-    m = a.shape[0]
-    nt = -(-m // 8)
-    ap = torch.zeros((8 * nt, 8 * nt), dtype=a.dtype, device=a.device)
-    ap[:m, :m] = a
-    return ap.view(nt, 4, 2, nt, 8).permute(0, 3, 4, 1, 2).contiguous()
 
 
 def chunk_operators_fused(a, bfull, stream):
