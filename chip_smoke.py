@@ -2034,7 +2034,7 @@ def k1_tiles(card, dev):
     from itrails_tpu_torch.hmm import cuda_fwd
 
     lib = cuda_fwd._library()
-    lib.k1_set_tile_rows.argtypes = [ctypes.c_int]
+    lib.k1_set_tile_rows.argtypes = [ctypes.c_int, ctypes.c_int]
     mhz = sm_clock_mhz()
     for seed, (label, n_ab, n_abc, w, t) in enumerate(K1_SHAPES + [K1_BUCKET]):
         a, bfull, pi, _ = build_tables(n_ab, n_abc, dev)
@@ -2042,15 +2042,17 @@ def k1_tiles(card, dev):
         tok = padded_tokens(dev, w, t, seed)
         _, ll_ref = cuda_fwd.forward_fused_plain(a, bfull, pi, tok)
         parts = []
-        for rows in (0, 8, 16):
-            lib.k1_set_tile_rows(rows)
-            _, ll = cuda_fwd.forward_fused(a, bfull, pi, tok)
-            rel = float(((ll - ll_ref).abs() / ll_ref.abs().clamp(min=1.0)).max())
-            check(rel <= VALUE64_RTOL, f"K1 tiles {rows}: off by {rel:.3g}")
-            ms = cuda_ms(lambda: cuda_fwd.forward_fused(a, bfull, pi, tok), 10)
-            parts.append(f"{rows or 'rule'} rows {ms:.4f} ms "
-                         f"({1e3 * ms * mhz / (t - 1):.0f} clocks a column)")
-        lib.k1_set_tile_rows(0)
+        for b2b in (1, 0, 1, 0):
+            for rows in (8, 16):
+                lib.k1_set_tile_rows(rows, b2b)
+                _, ll = cuda_fwd.forward_fused(a, bfull, pi, tok)
+                rel = float(((ll - ll_ref).abs() / ll_ref.abs().clamp(min=1.0)).max())
+                check(rel <= VALUE64_RTOL, f"K1 tiles {rows}: off by {rel:.3g}")
+                ms = cuda_ms(lambda: cuda_fwd.forward_fused(a, bfull, pi, tok), 10)
+                parts.append(f"{rows} rows {'back to back' if b2b else 'interleaved'} "
+                             f"{ms:.4f} ms ({1e3 * ms * mhz / (t - 1):.0f} clocks a "
+                             f"column)")
+        lib.k1_set_tile_rows(0, 0)
         a32, b32, p32 = (x.float().contiguous() for x in (a, bfull, pi))
         ms32 = cuda_ms(lambda: cuda_fwd.forward_fused(a32, b32, p32, tok), 10)
         print(f"{card} | K1 tiles {label} M={a.shape[0]} W={w} T={t}: f64 "
@@ -2075,7 +2077,6 @@ def main():
     t_start = time.perf_counter()
     if sys.argv[1:] == ["--k1-tiles"]:
         phase_build(card)
-        rows_sass(card)
         k1_tiles(card, dev)
         return 0
     try:
