@@ -2026,37 +2026,35 @@ def phase_long_grad(card, dev, cli):
 
 
 def k1_tiles(card, dev):
-    """K1 in f64 with 8-row and with 16-row tiles, and by its rule, at the
-    shapes of phase 2 and the CLI's bucket, each checked against the plain
-    f64 version: the measurement that chose the tile-height rule."""
-    import torch
-
+    """K1 in f64 with 8-row and with 16-row tiles, at the shapes of phase 2,
+    the CLI's bucket and window counts whose 16-row tiles fill every SM
+    sub-partition, each checked against the plain f64 version: the
+    measurement that chose the tile-height rule."""
     from itrails_tpu_torch.hmm import cuda_fwd
 
     lib = cuda_fwd._library()
-    lib.k1_set_tile_rows.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.k1_set_tile_rows.argtypes = [ctypes.c_int]
     mhz = sm_clock_mhz()
-    for seed, (label, n_ab, n_abc, w, t) in enumerate(K1_SHAPES + [K1_BUCKET]):
+    shapes = K1_SHAPES + [K1_BUCKET, ("3x3 wide", 3, 3, 8448, 2048),
+                          ("3x3 wider", 3, 3, 16384, 2048),
+                          ("7x7 wide", 7, 7, 8448, 512)]
+    for seed, (label, n_ab, n_abc, w, t) in enumerate(shapes):
         a, bfull, pi, _ = build_tables(n_ab, n_abc, dev)
         a, bfull, pi = (x.contiguous() for x in (a, bfull, pi))
         tok = padded_tokens(dev, w, t, seed)
         _, ll_ref = cuda_fwd.forward_fused_plain(a, bfull, pi, tok)
         parts = []
-        for b2b in (1, 0, 1, 0):
-            for rows in (8, 16):
-                lib.k1_set_tile_rows(rows, b2b)
-                _, ll = cuda_fwd.forward_fused(a, bfull, pi, tok)
-                rel = float(((ll - ll_ref).abs() / ll_ref.abs().clamp(min=1.0)).max())
-                check(rel <= VALUE64_RTOL, f"K1 tiles {rows}: off by {rel:.3g}")
-                ms = cuda_ms(lambda: cuda_fwd.forward_fused(a, bfull, pi, tok), 10)
-                parts.append(f"{rows} rows {'back to back' if b2b else 'interleaved'} "
-                             f"{ms:.4f} ms ({1e3 * ms * mhz / (t - 1):.0f} clocks a "
-                             f"column)")
-        lib.k1_set_tile_rows(0, 0)
-        a32, b32, p32 = (x.float().contiguous() for x in (a, bfull, pi))
-        ms32 = cuda_ms(lambda: cuda_fwd.forward_fused(a32, b32, p32, tok), 10)
+        for rows in (8, 16, 8, 16):
+            lib.k1_set_tile_rows(rows)
+            _, ll = cuda_fwd.forward_fused(a, bfull, pi, tok)
+            rel = float(((ll - ll_ref).abs() / ll_ref.abs().clamp(min=1.0)).max())
+            check(rel <= VALUE64_RTOL, f"K1 tiles {rows}: off by {rel:.3g}")
+            ms = cuda_ms(lambda: cuda_fwd.forward_fused(a, bfull, pi, tok), 10)
+            parts.append(f"{rows} rows {ms:.4f} ms ({1e3 * ms * mhz / (t - 1):.0f} "
+                         f"clocks a column)")
+        lib.k1_set_tile_rows(0)
         print(f"{card} | K1 tiles {label} M={a.shape[0]} W={w} T={t}: f64 "
-              + ", ".join(parts) + f"; f32 {ms32:.4f} ms")
+              + ", ".join(parts))
 
 
 def main():

@@ -448,20 +448,6 @@ k1_rows_f32(const float* __restrict__ a,       // (M, M)
 
 template <int NT, int RH>
 __global__ void __launch_bounds__(kWarpsF64 * 32, 1)
-k1_alt_f64(const double2* __restrict__ afr,   // (NT, NT, 32) a's fragments
-           const double* __restrict__ bt,     // (625, width), zero pad
-           const double* __restrict__ x0,     // (W, M) after column 0
-           const int* __restrict__ tokens,    // (W, T), PAD = -1
-           double* __restrict__ x_out,        // (W, M)
-           int* __restrict__ k_out,           // (W,)
-           int W, int T, int M, int width) {
-  using Lay = F64Layout<NT, RH>;
-  rows_f64<Start::kGiven, NT, RH, Lay::XS, Lay::GB, Lay::EP, false>(
-      afr, bt, x0, tokens, x_out, k_out, W, T - 1, M, width);
-}
-
-template <int NT, int RH>
-__global__ void __launch_bounds__(kWarpsF64 * 32, 1)
 k1_rows_f64(const double2* __restrict__ afr,   // (NT, NT, 32) a's fragments
             const double* __restrict__ bt,     // (625, width), zero pad
             const double* __restrict__ x0,     // (W, M) after column 0
@@ -470,14 +456,13 @@ k1_rows_f64(const double2* __restrict__ afr,   // (NT, NT, 32) a's fragments
             int* __restrict__ k_out,           // (W,)
             int W, int T, int M, int width) {
   using Lay = F64Layout<NT, RH>;
-  rows_f64<Start::kGiven, NT, RH, Lay::XS, Lay::GB, Lay::EP, true>(
+  rows_f64<Start::kGiven, NT, RH, Lay::XS, Lay::GB, Lay::EP>(
       afr, bt, x0, tokens, x_out, k_out, W, T - 1, M, width);
 }
 
 // K1's 8-row halves a warp in f64 at W windows and NT 8-column tiles (the
 // tile-height rule of the note above).
 int k1_tile_rows = 0;  // measurement only: 8 or 16 overrides the rule
-int k1_back_to_back = 0;  // measurement only: 1 takes dmma_step's order
 int k1_halves(int W, int nt) {
   if (k1_tile_rows != 0) return nt <= 17 && k1_tile_rows == 16 ? 2 : 1;
   return nt <= 17 && (W + 15) / 16 >= 4 * sm_count() ? 2 : 1;
@@ -490,12 +475,10 @@ int k1_dispatch_nt(int nt, int rh, F& f) {
   if (nt == NT) {
     if constexpr (NT <= 17) {
       if (rh == 2)
-        return f(rows_config(k1_back_to_back ? k1_alt_f64<NT, 2> : k1_rows_f64<NT, 2>,
-                             16, F64Layout<NT, 2>::kFixed,
+        return f(rows_config(k1_rows_f64<NT, 2>, 16, F64Layout<NT, 2>::kFixed,
                              F64Layout<NT, 2>::kWarp, kWarpsF64));
     }
-    return f(rows_config(k1_back_to_back ? k1_alt_f64<NT, 1> : k1_rows_f64<NT, 1>,
-                         8, F64Layout<NT, 1>::kFixed,
+    return f(rows_config(k1_rows_f64<NT, 1>, 8, F64Layout<NT, 1>::kFixed,
                          F64Layout<NT, 1>::kWarp, kWarpsF64));
   }
   if constexpr (NT < kMaxNT) {
@@ -582,10 +565,7 @@ int k1_attributes(int W, int M, int f64, int* out) {
   });
 }
 
-void k1_set_tile_rows(int rows, int back_to_back) {
-  k1_tile_rows = rows;
-  k1_back_to_back = back_to_back;
-}
+void k1_set_tile_rows(int rows) { k1_tile_rows = rows; }
 
 const char* k1_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
