@@ -93,7 +93,8 @@ power limit):
 10. the long-block value: phase 3's 320 kb block and a 1e7-column block
    simulated from the 3x3 model, and a 320 kb block simulated from the 7x7
    model, each through K5 and the operator product, K1 as a one-window
-   batch and (the 320 kb blocks) K2 as a one-window batch on f32 tables,
+   batch (one row of a tile) and (the 320 kb blocks) K2 as a one-window
+   batch on f32 tables,
    every value within rtol 1e-6 of the f64 plain operator path on the
    card, and through K5 and the operator product on the f64 tables within
    rtol 1e-10, with each route's milliseconds and the K5 route's peak
@@ -113,7 +114,6 @@ without the rest of the repository beside it, the script exits non-zero
 and prints no result.
 """
 
-import ctypes
 import json
 import os
 import subprocess
@@ -1839,7 +1839,8 @@ def timed(fn):
 
 def phase_long_value(card, dev, cli):
     """The long-block value through its three routes (K5 and the operator
-    product, K1 and K2 as one-window batches) on f32 tables, and the K5
+    product, K1 and K2 as one-window batches: K1 one row of a tile) on
+    f32 tables, and the K5
     route on the f64 tables (the optimize CLI's default), against the f64
     plain operator path, on phase 3's 320 kb block and a 1e7-column block
     at 3x3 and a 320 kb block at 7x7."""
@@ -2025,38 +2026,6 @@ def phase_long_grad(card, dev, cli):
           + "; ".join(sweep))
 
 
-def k1_tiles(card, dev):
-    """K1 in f64 with 8-row and with 16-row tiles, at the shapes of phase 2,
-    the CLI's bucket and window counts whose 16-row tiles fill every SM
-    sub-partition, each checked against the plain f64 version: the
-    measurement that chose the tile-height rule."""
-    from itrails_tpu_torch.hmm import cuda_fwd
-
-    lib = cuda_fwd._library()
-    lib.k1_set_tile_rows.argtypes = [ctypes.c_int]
-    mhz = sm_clock_mhz()
-    shapes = K1_SHAPES + [K1_BUCKET, ("3x3 wide", 3, 3, 8448, 2048),
-                          ("3x3 wider", 3, 3, 16384, 2048),
-                          ("7x7 wide", 7, 7, 8448, 512)]
-    for seed, (label, n_ab, n_abc, w, t) in enumerate(shapes):
-        a, bfull, pi, _ = build_tables(n_ab, n_abc, dev)
-        a, bfull, pi = (x.contiguous() for x in (a, bfull, pi))
-        tok = padded_tokens(dev, w, t, seed)
-        _, ll_ref = cuda_fwd.forward_fused_plain(a, bfull, pi, tok)
-        parts = []
-        for rows in (8, 16, 8, 16):
-            lib.k1_set_tile_rows(rows)
-            _, ll = cuda_fwd.forward_fused(a, bfull, pi, tok)
-            rel = float(((ll - ll_ref).abs() / ll_ref.abs().clamp(min=1.0)).max())
-            check(rel <= VALUE64_RTOL, f"K1 tiles {rows}: off by {rel:.3g}")
-            ms = cuda_ms(lambda: cuda_fwd.forward_fused(a, bfull, pi, tok), 10)
-            parts.append(f"{rows} rows {ms:.4f} ms ({1e3 * ms * mhz / (t - 1):.0f} "
-                         f"clocks a column)")
-        lib.k1_set_tile_rows(0)
-        print(f"{card} | K1 tiles {label} M={a.shape[0]} W={w} T={t}: f64 "
-              + ", ".join(parts))
-
-
 def main():
     import torch
 
@@ -2073,10 +2042,6 @@ def main():
     print(f"{card} | torch {torch.__version__} cuda {torch.version.cuda} | "
           f"{torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
-    if sys.argv[1:] == ["--k1-tiles"]:
-        phase_build(card)
-        k1_tiles(card, dev)
-        return 0
     try:
         return run_phases(card, dev, t_start)
     finally:  # no process outlives the script

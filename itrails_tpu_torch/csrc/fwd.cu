@@ -429,8 +429,24 @@ int dispatch_s(int M, F&& f) {
 // every SM sub-partition of the card (4 an SM) and M <= 136; else 8
 // (m8n8k4), which doubles the tiles where 16-row ones would leave
 // sub-partitions idle: at W = 4096, 256 tiles of 16 rows against 528
-// sub-partitions, and the optimize CLI's bucket (W = 100) has 7.  f32 takes
-// K5's tiles: 4 rows a warp at M <= 64, else 8.
+// sub-partitions, and the optimize CLI's bucket (W = 100) has 7.  Either
+// tile is latency-bound when it has a sub-partition to itself (~1,400 SM
+// clocks a column at M = 27 for 8 rows, ~1,700 for 16), so halving the rows
+// a tile pays until the tiles fill the card, and no further.  The times
+// that chose it, 8-row / 16-row tiles (NVIDIA H100 80GB HBM3, 700 W;
+// PERF.md §6):
+//
+//   M     W x T           8 rows         16 rows
+//   27    100 x 10112     7.15-7.16 ms   8.48-8.49 ms   (the CLI's bucket)
+//   27    4096 x 8192     5.78-5.83      7.09-7.13
+//   27    8448 x 2048     1.83           1.71-1.72
+//   27    16384 x 2048    3.04           2.36-2.53
+//   133   1024 x 2048     12.14-12.15    15.89-15.90
+//   133   8448 x 512      5.22-5.26      4.13-4.16
+//
+// Putting each tile's k steps NT mma apart instead of back to back moved
+// K1 by 2% at M = 27 and -0.5% at M = 133, so K1 keeps K5's order.  f32
+// takes K5's tiles: 4 rows a warp at M <= 64, else 8.
 
 namespace {
 
@@ -462,9 +478,7 @@ k1_rows_f64(const double2* __restrict__ afr,   // (NT, NT, 32) a's fragments
 
 // K1's 8-row halves a warp in f64 at W windows and NT 8-column tiles (the
 // tile-height rule of the note above).
-int k1_tile_rows = 0;  // measurement only: 8 or 16 overrides the rule
 int k1_halves(int W, int nt) {
-  if (k1_tile_rows != 0) return nt <= 17 && k1_tile_rows == 16 ? 2 : 1;
   return nt <= 17 && (W + 15) / 16 >= 4 * sm_count() ? 2 : 1;
 }
 
@@ -564,8 +578,6 @@ int k1_attributes(int W, int M, int f64, int* out) {
     return 0;
   });
 }
-
-void k1_set_tile_rows(int rows) { k1_tile_rows = rows; }
 
 const char* k1_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
