@@ -1839,11 +1839,10 @@ def timed(fn):
 
 def phase_long_value(card, dev, cli):
     """The long-block value through its three routes (K5 and the operator
-    product, K1 and K2 as one-window batches: K1 one row of a tile) on
-    f32 tables, and the K5
-    route on the f64 tables (the optimize CLI's default), against the f64
-    plain operator path, on phase 3's 320 kb block and a 1e7-column block
-    at 3x3 and a 320 kb block at 7x7."""
+    product, K1 and K2 as one-window batches, K1's one row of a tile) on
+    f32 tables, and the K5 route on the f64 tables (the optimize CLI's
+    default), against the f64 plain operator path, on phase 3's 320 kb
+    block and a 1e7-column block at 3x3 and a 320 kb block at 7x7."""
     import torch
 
     from itrails_tpu_torch.data.simulate import simulate_token_batch
