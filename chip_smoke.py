@@ -2025,46 +2025,6 @@ def phase_long_grad(card, dev, cli):
           + "; ".join(sweep))
 
 
-def k1_sets(card, dev):
-    """K1 in f64 with its k steps spread over 1, 2, 4 or 8 accumulator sets
-    (and the shared order, 0), at M = 27 on the CLI's bucket and 4096 x
-    8192 with 8- and 16-row tiles, at M = 133 on 1024 x 2048, each checked
-    against the plain f64 version."""
-    import ctypes
-
-    from itrails_tpu_torch.hmm import cuda_fwd
-
-    lib = cuda_fwd._library()
-    lib.k1_set_variant.argtypes = [ctypes.c_int, ctypes.c_int]
-    mhz = sm_clock_mhz()
-    cases = [(K1_BUCKET, (0, 1, 2, 4, 8), (0, 1)),
-             (K1_SHAPES[0], (0, 1, 2, 4, 8), (0, 1)),
-             (K1_SHAPES[1], (0, 1, 2), (0,))]
-    for seed, ((label, n_ab, n_abc, w, t), sets, r16s) in enumerate(cases):
-        a, bfull, pi, _ = build_tables(n_ab, n_abc, dev)
-        a, bfull, pi = (x.contiguous() for x in (a, bfull, pi))
-        tok = padded_tokens(dev, w, t, seed)
-        _, ll_ref = cuda_fwd.forward_fused_plain(a, bfull, pi, tok)
-        parts = []
-        for rep in range(2):
-            for r16 in r16s:
-                for n_sets in sets:
-                    lib.k1_set_variant(n_sets, r16)
-                    _, ll = cuda_fwd.forward_fused(a, bfull, pi, tok)
-                    rel = float(((ll - ll_ref).abs()
-                                 / ll_ref.abs().clamp(min=1.0)).max())
-                    check(rel <= VALUE64_RTOL, f"K1 sets {n_sets}: off by {rel:.3g}")
-                    ms = cuda_ms(lambda: cuda_fwd.forward_fused(a, bfull, pi, tok), 10)
-                    at = cuda_fwd.kernel_attributes(w, a.shape[0], True)
-                    parts.append(f"{16 if r16 else 'rule'} rows, {n_sets} sets "
-                                 f"{ms:.4f} ms ({1e3 * ms * mhz / (t - 1):.0f} "
-                                 f"clocks, {at['registers']} regs, "
-                                 f"{at['local_bytes']} local)")
-        lib.k1_set_variant(0, 0)
-        print(f"{card} | K1 sets {label} M={a.shape[0]} W={w} T={t}: "
-              + "; ".join(parts))
-
-
 def main():
     import torch
 
@@ -2081,10 +2041,6 @@ def main():
     print(f"{card} | torch {torch.__version__} cuda {torch.version.cuda} | "
           f"{torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
-    if sys.argv[1:] == ["--k1-sets"]:
-        phase_build(card)
-        k1_sets(card, dev)
-        return 0
     try:
         return run_phases(card, dev, t_start)
     finally:  # no process outlives the script

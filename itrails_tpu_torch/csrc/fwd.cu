@@ -476,20 +476,6 @@ k1_rows_f64(const double2* __restrict__ afr,   // (NT, NT, 32) a's fragments
       afr, bt, x0, tokens, x_out, k_out, W, T - 1, M, width);
 }
 
-template <int NT, int RH, int AS>
-__global__ void __launch_bounds__(kWarpsF64 * 32, 1)
-k1_acc_f64(const double2* __restrict__ afr, const double* __restrict__ bt,
-           const double* __restrict__ x0, const int* __restrict__ tokens,
-           double* __restrict__ x_out, int* __restrict__ k_out, int W, int T,
-           int M, int width) {
-  using Lay = F64Layout<NT, RH>;
-  rows_f64<Start::kGiven, NT, RH, Lay::XS, Lay::GB, Lay::EP, AS>(
-      afr, bt, x0, tokens, x_out, k_out, W, T - 1, M, width);
-}
-
-int k1_sets = 0;   // measurement only: accumulator sets at NT = 4 and 17
-int k1_rows16 = 0;  // measurement only: 1 forces 16-row tiles at NT = 4
-
 // K1's 8-row halves a warp in f64 at W windows and NT 8-column tiles (the
 // tile-height rule of the note above).
 int k1_halves(int W, int nt) {
@@ -501,26 +487,6 @@ int k1_halves(int W, int nt) {
 template <int NT, typename F>
 int k1_dispatch_nt(int nt, int rh, F& f) {
   if (nt == NT) {
-    if constexpr (NT == 4) {
-      if (k1_rows16) rh = 2;
-      using L1 = F64Layout<4, 1>;
-      using L2 = F64Layout<4, 2>;
-#define K1_SET(A)                                                              \
-  if (k1_sets == A)                                                            \
-    return rh == 2 ? f(rows_config(k1_acc_f64<4, 2, A>, 16, L2::kFixed,       \
-                                   L2::kWarp, kWarpsF64))                     \
-                   : f(rows_config(k1_acc_f64<4, 1, A>, 8, L1::kFixed,        \
-                                   L1::kWarp, kWarpsF64));
-      K1_SET(1) K1_SET(2) K1_SET(4) K1_SET(8)
-#undef K1_SET
-    }
-    if constexpr (NT == 17) {
-      using L1 = F64Layout<17, 1>;
-      if (k1_sets == 1)
-        return f(rows_config(k1_acc_f64<17, 1, 1>, 8, L1::kFixed, L1::kWarp, kWarpsF64));
-      if (k1_sets == 2)
-        return f(rows_config(k1_acc_f64<17, 1, 2>, 8, L1::kFixed, L1::kWarp, kWarpsF64));
-    }
     if constexpr (NT <= 17) {
       if (rh == 2)
         return f(rows_config(k1_rows_f64<NT, 2>, 16, F64Layout<NT, 2>::kFixed,
@@ -611,11 +577,6 @@ int k1_attributes(int W, int M, int f64, int* out) {
     out[3] = cfg.max_warps;
     return 0;
   });
-}
-
-void k1_set_variant(int sets, int rows16) {
-  k1_sets = sets;
-  k1_rows16 = rows16;
 }
 
 const char* k1_error_string(int code) {

@@ -389,19 +389,6 @@ __device__ __forceinline__ void dmma_step(double (&c)[RH][2],
   }
 }
 
-// One k step (j, h) of the RH 8-row halves of a tile into c: the half h
-// of dmma_step.
-template <int RH>
-__device__ __forceinline__ void dmma_half(double (&c)[RH][2],
-                                          const double (&x)[RH][2], int h,
-                                          double b) {
-  if constexpr (RH == 1) {
-    dmma884(c[0], x[0][h], b);
-  } else {
-    dmma1684(c, x[0][h], x[1][h], b);
-  }
-}
-
 // The emission pairs of row half rh for token tok: e[n][rh] holds
 // bt[tok][8n + 2 t4 + h], h = 0, 1 (0 for a PAD or a token outside the
 // alphabet: such a pair is never used, or zeroes the row).
@@ -433,7 +420,7 @@ struct F64Layout {
 // The f64 rows r0 .. r0 + 8 RH - 1 of warp (blockIdx, threadIdx / 32), over
 // L columns; x0 is read only by kGiven.  Launched with kWarpsF64 warps a
 // block at most and F64Layout's shared memory.
-template <Start St, int NT, int RH, bool XS, bool GB, bool EP, int AS = 0>
+template <Start St, int NT, int RH, bool XS, bool GB, bool EP>
 __device__ __forceinline__ void rows_f64(
     const double2* __restrict__ afr,  // (NT, NT, 32) a's fragments
     const double* __restrict__ bt,    // (625, width), zero pad
@@ -534,35 +521,6 @@ __device__ __forceinline__ void rows_f64(
             }
           }
         }
-      } else if constexpr (AS > 0) {
-        // k step kk = 2j + h into accumulator set kk % AS, tiles innermost
-        double cs[AS][NT][RH][2];
-#pragma unroll
-        for (int q = 0; q < AS; ++q)
-#pragma unroll
-          for (int n = 0; n < NT; ++n)
-#pragma unroll
-            for (int rh = 0; rh < RH; ++rh) cs[q][n][rh][0] = cs[q][n][rh][1] = 0.0;
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const double* f = reinterpret_cast<const double*>(fr + j * NT * 32 + lane);
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int n = 0; n < NT; ++n)
-              dmma_half<RH>(cs[(2 * j + h) % AS][n], x[j], h, f[n * 64 + h]);
-        }
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-#pragma unroll
-          for (int rh = 0; rh < RH; ++rh)
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-              double v = cs[0][n][rh][i];
-#pragma unroll
-              for (int q = 1; q < AS; ++q) v += cs[q][n][rh][i];
-              c[n][rh][i] = v;
-            }
       } else {
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
