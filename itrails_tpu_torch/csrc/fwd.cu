@@ -402,12 +402,12 @@ int dispatch_s(int M, F&& f) {
 // log(sum_j X_wj) and alpha_w = X_w / sum_j X_wj; a window with no live
 // column after column 0 folds to column 0's own alpha and log-normalizer.
 //
-// What bounds it on an H100: per non-PAD column 2 M^2 + M operations (the
-// product and the emission) against 4 bytes of token in, and each window
-// writes one row and one sum, so K1 is bound by issue, not by memory: 33.5 M
-// columns need ~0.64 ms at M = 27 at 67 TFLOP/s (f32 outside the tensor
-// cores; f64 on the FP64 tensor cores) against 0.04 ms for their tokens at
-// 3.35 TB/s.  The recurrence is sequential in t; the parallelism is across
+// What bounds it on an H100: per non-PAD column 2 M^2 + 3 M operations
+// (the product, the emission and the normalization; chip_smoke.py's
+// k1_bound_ms) against 4 bytes of token in, and each window writes one row
+// and one sum, so K1 is bound by issue, not by memory: 33.5 M columns need
+// 0.64 ms at M = 27 at 67 TFLOP/s (f32 outside the tensor cores; f64 on
+// the FP64 tensor cores) against 0.04 ms for their tokens at 3.35 TB/s.  The recurrence is sequential in t; the parallelism is across
 // windows.
 //
 // Why rows with power-of-two scales.  One warp walking one window
@@ -444,9 +444,11 @@ int dispatch_s(int M, F&& f) {
 //   133   1024 x 2048     12.14-12.15    15.89-15.90
 //   133   8448 x 512      5.22-5.26      4.13-4.16
 //
-// Putting each tile's k steps NT mma apart instead of back to back moved
-// K1 by 2% at M = 27 and -0.5% at M = 133, so K1 keeps K5's order.  f32
-// takes K5's tiles: 4 rows a warp at M <= 64, else 8.
+// The mma chain is not what holds a column: putting each tile's k steps
+// NT mma apart instead of back to back moved K1 by -2% at M = 27 and
+// +0.5% at M = 133, and spreading them over 4 accumulator sets by -4% on
+// the CLI's bucket and -7% at 4096 x 8192 (8 sets no better), so K1 keeps
+// K5's order.  f32 takes K5's tiles: 4 rows a warp at M <= 64, else 8.
 
 namespace {
 
