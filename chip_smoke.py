@@ -486,8 +486,8 @@ def phase_k1(card, dev, m_label, n_ab, n_abc, w, t, seed, reps):
                 f"{at['max_warps']} warps a block")
 
     print(f"{card} | phase 2 K1 {m_label} M={m} W={w} T={t}: per-window ll "
-          f"max rel err {rel:.3g} (rtol 1e-5: f32 normalizers summed over T "
-          f"steps), total rel err {total_rel:.3g} (rtol 1e-6: f64 sum of f32 "
+          f"max rel err {rel:.3g} (rtol 1e-5: f32 products over T steps), "
+          f"total rel err {total_rel:.3g} (rtol 1e-6: f64 sum of f32 "
           f"windows), alpha max abs err {alpha_err:.3g}; K1 {ms:.4f} ms "
           f"(mean of {reps}, {launches} launches), "
           f"plain f64 {plain_ms:.1f} ms (no yardstick), bound {bound_ms:.4f} "
