@@ -312,6 +312,17 @@ def _run_chain(steps, masks, p, expms, vl_expms=None):
     return p
 
 
+def _index_sum(out, idx, v):
+    """``out[idx] += v``, repeated indices summed in one fixed order.  On
+    the card ``index_add_`` sums them with atomics, in an order that can
+    change from call to call, so two builds of one model could differ in
+    their last bits; ``index_put_``'s accumulate sorts the indices first.
+    On the CPU ``index_add_`` sums in index order."""
+    if out.is_cuda:
+        return out.index_put_((idx,), v, accumulate=True)
+    return out.index_add_(0, idx, v)
+
+
 def _rate_matrix(coal_pattern, rho_pattern, coal, rho):
     q = coal * coal_pattern + rho * rho_pattern
     return q - torch.diag(q.sum(dim=1))
@@ -412,8 +423,8 @@ class JointMatrixFn:
 
         # ---- final (infinite) interval ----
         entries = torch.zeros(plan.n_entries, **kw)
-        entries.index_add_(0, self._direct_out,
-                           p_abc[self._direct_src].sum(dim=1))
+        _index_sum(entries, self._direct_out,
+                   p_abc[self._direct_src].sum(dim=1))
         keep = self._keep
         q_no = q_abc[keep][:, keep]
         n_mat = torch.linalg.solve(
@@ -427,8 +438,8 @@ class JointMatrixFn:
                 x = ((x * mf) @ q_no) * mt
                 if i < m - 1:
                     x = x @ n_mat
-            entries.index_add_(0, out, x.sum(dim=1))
+            _index_sum(entries, out, x.sum(dim=1))
 
         joint = torch.zeros(self._m * self._m, **kw)
-        joint.index_add_(0, self._entry_flat, entries)
+        _index_sum(joint, self._entry_flat, entries)
         return joint.view(self._m, self._m)

@@ -202,3 +202,33 @@ def test_build_vjp_matches_jax(n_ab, n_abc):
     (g_ref,) = vjp(tuple(jnp.asarray(c) for c in cot))
     assert np.isfinite(g.numpy()).all()
     np.testing.assert_allclose(g.numpy(), np.asarray(g_ref), rtol=1e-8)
+
+
+@pytest.mark.gpu
+def test_builder_sums_in_one_order_on_the_card():
+    """The builder's index sums (``ctmc._index_sum``) give the same bits on
+    every call on the card, with many values summed into each entry (where
+    ``index_add_``'s atomics change the order from call to call), and two
+    builds of one model give bit-identical tables."""
+    from itrails_tpu_torch.core import ctmc
+    from itrails_tpu_torch.core.model import build_model
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run `pytest -m gpu tests/test_torch_*.py` "
+                    "on the H100")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    idx = torch.randint(0, 729, (50_000,), device=dev, generator=gen)
+    val = torch.rand(50_000, device=dev, dtype=torch.float64, generator=gen)
+    first = ctmc._index_sum(torch.zeros(729, dtype=torch.float64, device=dev),
+                            idx, val)
+    for _ in range(20):
+        again = ctmc._index_sum(torch.zeros(729, dtype=torch.float64,
+                                            device=dev), idx, val)
+        assert torch.equal(again, first)
+    want = torch.zeros(729, dtype=torch.float64).index_add_(0, idx.cpu(), val.cpu())
+    np.testing.assert_allclose(first.cpu().numpy(), want.numpy(), rtol=1e-12)
+    one, two = (build_model(n_int_AB=3, n_int_ABC=3, device=dev, **PARAMS)
+                for _ in range(2))
+    for x, y in ((one.a, two.a), (one.b, two.b), (one.pi, two.pi)):
+        assert torch.equal(x, y)
