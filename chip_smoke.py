@@ -478,7 +478,7 @@ def phase_k1(card, dev, m_label, n_ab, n_abc, w, t, seed, reps):
     # kernel's time over the T - 1 columns
     mhz = sm_clock_mhz()
     clocks, clocks64 = (1e3 * x * mhz / max(t - 1, 1) for x in (ms, ms64))
-    att, att64 = (cuda_fwd.kernel_attributes(w, m, f64) for f64 in (False, True))
+    att, att64 = (cuda_fwd.kernel_attributes(m, f64) for f64 in (False, True))
 
     def tile(at):
         return (f"{at['registers']} registers, {at['local_bytes']} local "
@@ -868,13 +868,13 @@ def rows_sass(card):
     (``csrc/rows.cuh``), each in its own library: every f64 instantiation
     runs its product on the FP64 tensor cores (DMMA), no f32 one does, and
     each has one block-wide barrier, the one before its column loop.  K5
-    has 28 f64 instantiations (one tile a size), K1 45 (8-row tiles at every
-    size, 16-row ones up to M = 136); each 7 f32 ones."""
+    has 28 f64 instantiations (one tile a size), K1 28 (8-row tiles, one a
+    size); each 7 f32 ones."""
     import re
 
     from itrails_tpu_torch.hmm import _build, cuda_fwd, cuda_longseq
 
-    for name, mod, tag, n_f64 in (("K1", cuda_fwd, "k1_rows", 45),
+    for name, mod, tag, n_f64 in (("K1", cuda_fwd, "k1_rows", 28),
                                   ("K5", cuda_longseq, "k5_rows", 28)):
         path, _ = mod.build()
         funcs = {n: body for n, body in _build.sass_functions(path).items()

@@ -25,7 +25,7 @@
 // fixed order and does column 0.
 //
 // Two launches per call:
-// * the forward: forward_kernel (csrc/fwd.cu, included below) instantiated
+// * the forward: forward_kernel (csrc/forward.cuh, included below) instantiated
 //   to also write alpha at every chunk entry into a checkpoint
 //   (n_chunks, W, 32*S) f32, chunks of kChunk columns;
 // * k2_backward: one warp per window walks the chunks in reverse.  For each
@@ -58,7 +58,7 @@
 // windows with boundary rows from K5's transfer operators, one warp a
 // chunk.
 //
-// Design (simple and exact first): the product forms of fwd.cu (Mat: for
+// Design (simple and exact first): the product forms of forward.cuh (Mat: for
 // M <= 32 each lane keeps its column and its row of a in registers; above
 // that a sits in shared memory with a padded row stride, so both a^T x and
 // a x read it without bank conflicts); z is clamped at 1e-30 as on the TPU.
@@ -67,7 +67,7 @@
 // not synchronize, allocates nothing, and returns cudaGetLastError().  The
 // dA and dB partials must be zero on entry.
 
-#include "fwd.cu"  // forward_kernel, Mat, forward_step and the helpers
+#include "forward.cuh"  // forward_kernel, Mat, forward_step and the helpers
 
 namespace {
 

@@ -63,7 +63,7 @@
 // Launch contract: the C entry point enqueues on the given stream, does
 // not synchronize, allocates nothing, and returns cudaGetLastError().
 
-#include "fwd.cu"  // K1's table layout (k1_table_width), dispatch_s and the rows
+#include "rows.cuh"  // the row kernels, and forward.cuh's helpers
 
 namespace {
 

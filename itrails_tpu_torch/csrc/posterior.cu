@@ -30,7 +30,7 @@
 // (hmm/decoders.py:posterior_stream).
 //
 // Design (simple and exact first):
-// * the forward is forward_kernel (csrc/fwd.cu, included below),
+// * the forward is forward_kernel (csrc/forward.cuh, included below),
 //   instantiated with a checkpoint every column (TC = 1) and no loglik: it
 //   writes alpha_t into row t of the store (T, W, 32S) for t < T-1 and the
 //   final alpha into a (W, M) tensor;
@@ -53,7 +53,7 @@
 //   sits in shared memory up to M = 160 (S = 5: 206 KB of a and 10 KB of
 //   rows); above that its (32S, 32S + 1) copy (296 KB at S = 6) does not
 //   fit the 227 KB a block may use, and the kernels read a zero-padded
-//   copy in global memory that stays in L2 (a_in_global, csrc/fwd.cu).
+//   copy in global memory that stays in L2 (a_in_global, csrc/forward.cuh).
 //   The store's rows are 8 bytes a state in double; the callers' byte
 //   budget counts them so.  In double the bound is f64 issue, 67 TFLOP/s
 //   on the FP64 tensor cores (NVIDIA data sheet, H100 SXM).
@@ -61,7 +61,7 @@
 // Launch contract: the C entry points enqueue on the given stream, do not
 // synchronize, allocate nothing, and return cudaGetLastError().
 
-#include "fwd.cu"  // forward_kernel, Mat, load_emission and the helpers
+#include "forward.cuh"  // forward_kernel, Mat, load_emission and the helpers
 
 namespace {
 

@@ -1,7 +1,8 @@
 // The row kernels of K1 (csrc/fwd.cu) and K5 (csrc/operators.cu), written
 // for Hopper (sm_90a): independent forward rows, each with its own exact
-// power-of-two scale.  Included by fwd.cu after its helpers (kPad,
-// kTokens, kFull, load4, load_emission, dispatch_s, allow_smem).
+// power-of-two scale.  Included by fwd.cu and operators.cu; it takes its
+// helpers (kPad, kTokens, kFull, load4, load_emission, dispatch_s,
+// allow_smem) from forward.cuh.
 //
 // A row x of M states takes, for every column t it reads,
 //
@@ -83,7 +84,7 @@
 //   Above M = 160 a's fragments (up to 401 KB at M = 224) do not fit in
 //   shared memory: each warp reads them one k slice at a time from the
 //   L2-resident copy, correct and slower.  K5 takes 16-row tiles up to
-//   M = 136 and 8-row ones above; K1 chooses by its window count (fwd.cu).
+//   M = 136 and 8-row ones above; K1 takes 8-row tiles at every M (fwd.cu).
 //
 // Launch contract of the wrappers' C entry points: they enqueue on the
 // given stream, do not synchronize, allocate nothing, and return
@@ -92,6 +93,8 @@
 #pragma once
 
 #include <cfloat>
+
+#include "forward.cuh"
 
 namespace {
 

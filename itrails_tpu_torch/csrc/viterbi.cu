@@ -44,7 +44,7 @@
 //   32S floats: consecutive lanes read consecutive words, no bank
 //   conflict); above that lanes read it through the read-only cache;
 // * the log-emission row is a gather from the transposed table
-//   lbt (625, 32S), one step ahead, as in K1 (csrc/fwd.cu);
+//   lbt (625, 32S), one step ahead, as in forward_kernel (csrc/forward.cuh);
 // * pointers are uint8 (M <= 255), stored (W, T-1, M);
 // * the backtrack is one thread per window, a chain of dependent byte
 //   loads.

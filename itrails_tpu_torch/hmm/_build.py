@@ -4,7 +4,7 @@ Each kernel source is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, at its first use, into
 ``build/itrails_tpu_torch/`` at the root of the checkout.  The file name
 carries a hash of every file in ``csrc/`` (the kernel sources include
-``fwd.cu``, which includes ``rows.cuh``) and the flags, so an edited source
+the headers ``forward.cuh`` and ``rows.cuh``) and the flags, so an edited source
 or header is never served by a stale library.  The libraries are loaded
 with ``ctypes``.
 """

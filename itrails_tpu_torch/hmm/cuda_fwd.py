@@ -36,7 +36,7 @@ from itrails_tpu_torch.hmm._build import BUILD_DIR, CSRC, compile_library
 __all__ = ["bind_layout", "build", "check_inputs", "check_state", "column0",
            "dmma_fragments", "emission_rows", "fold_forward", "forward_fused",
            "forward_fused_plain", "forward_loglik_fused", "forward_rows_plain",
-           "kernel_attributes", "launch_rows", "padded_tables", "scaled_rows"]
+           "kernel_attributes", "padded_tables", "scaled_rows"]
 
 _SRC = CSRC / "fwd.cu"
 _lib = None
@@ -57,7 +57,7 @@ def _library():
         lib.k1_forward.argtypes = ([ctypes.c_void_p] * 6
                                    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         lib.k1_attributes.restype = ctypes.c_int
-        lib.k1_attributes.argtypes = [ctypes.c_int] * 3 + [
+        lib.k1_attributes.argtypes = [ctypes.c_int] * 2 + [
             ctypes.POINTER(ctypes.c_int)]
         bind_layout(lib)
         lib.k1_error_string.restype = ctypes.c_char_p
@@ -67,8 +67,8 @@ def _library():
 
 
 def bind_layout(lib):
-    """Declares the exports of ``csrc/fwd.cu`` that give the tables' layout
-    on the card, which every library that includes it carries:
+    """Declares the exports of ``csrc/forward.cuh`` that give the tables'
+    layout on the card, which every library that includes it carries:
     ``k1_table_width(M)``, ``k1_a_stride(M, f64)`` and ``k1_max_states()``."""
     lib.k1_table_width.restype = ctypes.c_int
     lib.k1_table_width.argtypes = [ctypes.c_int]
@@ -287,18 +287,16 @@ def forward_fused(a, bfull, pi, tokens):
         return forward_fused_plain(a, bfull, pi, tokens)
     if tokens.device.type != "cuda":
         raise ValueError(f"forward_fused: unsupported device {tokens.device}")
-    x, k = launch_rows(a, bfull, pi, tokens)
-    forward_fused.launches += 1
-    return fold_forward(x, k)
+    return fold_forward(*_launch_k1_rows(a, bfull, pi, tokens))
 
 
 forward_fused.launches = 0  # K1 launches since the last reset to 0
 
 
-def launch_rows(a, bfull, pi, tokens):
+def _launch_k1_rows(a, bfull, pi, tokens):
     """Launches K1 on CUDA tensors: ``(x, k)``, :func:`forward_rows_plain`'s
-    contract, unfolded.  Counts nothing: :func:`forward_fused` counts its
-    launches."""
+    contract, unfolded.  Every launch adds one to
+    ``forward_fused.launches``."""
     lib = _library()
     check_inputs("forward_fused", a, bfull, pi, tokens, lib.k1_max_states(),
                  (torch.float32, torch.float64))
@@ -319,6 +317,7 @@ def launch_rows(a, bfull, pi, tokens):
     if rc != 0:
         raise RuntimeError("K1 launch failed: "
                            f"{lib.k1_error_string(rc).decode()} ({rc})")
+    forward_fused.launches += 1
     return x, k
 
 
@@ -332,13 +331,13 @@ def forward_loglik_fused(a, bfull, pi, tokens):
     return ll.to(torch.float64).sum()
 
 
-def kernel_attributes(w: int, m: int, f64: bool):
-    """What K1 runs on ``w`` windows of ``m`` states on f32 or f64 tables,
-    on the current card: a dict of its registers and local (spill) bytes a
-    thread, its rows a warp and its warps a block at most."""
+def kernel_attributes(m: int, f64: bool):
+    """What K1 runs at ``m`` states on f32 or f64 tables, on the current
+    card: a dict of its registers and local (spill) bytes a thread, its rows
+    a warp and its warps a block at most."""
     lib = _library()
     out = (ctypes.c_int * 4)()
-    rc = lib.k1_attributes(w, m, int(f64), out)
+    rc = lib.k1_attributes(m, int(f64), out)
     if rc != 0:
         raise RuntimeError(f"K1 attributes: {lib.k1_error_string(rc).decode()}")
     return dict(zip(("registers", "local_bytes", "rows_per_warp",

@@ -247,26 +247,29 @@ def test_chunk_rows_through_scaled_rows_stay_bit_equal(dtype):
 
 def test_build_tag_covers_every_source_and_header(tmp_path):
     """The library's name carries a hash of every file of ``csrc/``: an
-    edited header (``rows.cuh``, which ``fwd.cu`` includes) or source gives
-    a new tag, so no stale library is loaded."""
+    edited header (``rows.cuh``, which ``fwd.cu`` and ``operators.cu``
+    include, or ``forward.cuh``, which ``rows.cuh``, ``grad.cu`` and
+    ``posterior.cu`` include) or source gives a new tag, so no stale library
+    is loaded."""
     import shutil
 
     from itrails_tpu_torch.hmm import _build
 
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
-    assert {"rows.cuh", "fwd.cu", "operators.cu"} <= {p.name for p in csrc.iterdir()}
+    assert ({"rows.cuh", "forward.cuh", "fwd.cu", "operators.cu"}
+            <= {p.name for p in csrc.iterdir()})
     tag = _build.source_tag(csrc)
     assert tag == _build.source_tag(_build.CSRC)
     seen = {tag}
-    for name in ("rows.cuh", "fwd.cu"):
+    for name in ("rows.cuh", "forward.cuh", "fwd.cu"):
         path = csrc / name
         text = path.read_text()
         path.write_text(text + "// edited\n")
         seen.add(_build.source_tag(csrc))
         path.write_text(text)
         assert _build.source_tag(csrc) == tag
-    assert len(seen) == 3
+    assert len(seen) == 4
 
 
 def test_loglik_total_is_summed_in_f64():
@@ -431,7 +434,7 @@ K1_STATES = [9, 27, 36, 96, 133, 160, 182, 224]
 def test_k1_rows_kernel_matches_plain_at_every_tile_layout(cuda_device, m, dtype):
     """K1 at every row-kernel layout (f32: registers or shared a, 4 or 8
     rows a warp; f64: X in registers or staged, a's fragments in shared
-    memory or L2, 8- or 16-row tiles) against the plain f64 version, at
+    memory or L2, 8-row tiles at every M) against the plain f64 version, at
     the existing gates: f32 loglik rtol 1e-5, alpha atol 1e-6; f64 1e-10."""
     from itrails_tpu_torch.hmm import cuda_fwd
 
@@ -443,6 +446,8 @@ def test_k1_rows_kernel_matches_plain_at_every_tile_layout(cuda_device, m, dtype
     torch.cuda.synchronize()
     assert cuda_fwd.forward_fused.launches == before + 1
     assert al.dtype == dtype and ll.dtype == torch.float64
+    if dtype == torch.float64:
+        assert cuda_fwd.kernel_attributes(m, True)["rows_per_warp"] == 8
     al_ref, ll_ref = cuda_fwd.forward_fused_plain(a, bfull, pi, tok)
     rtol, atol = (1e-5, 1e-6) if dtype == torch.float32 else (1e-10, 1e-10)
     np.testing.assert_allclose(ll.cpu().numpy(), ll_ref.cpu().numpy(),
@@ -494,7 +499,7 @@ def test_k1_rows_match_forward_rows_plain_on_the_card(cuda_device, m, dtype, ato
     a, bfull, pi = (x.to(dtype).contiguous() for x in
                     _torch(*_random_model(m, seed=m + 1), device=cuda_device))
     tok = torch.as_tensor(_tokens(21, 128, seed=m + 2), device=cuda_device)
-    x, k = cuda_fwd.launch_rows(a, bfull, pi, tok)
+    x, k = cuda_fwd._launch_k1_rows(a, bfull, pi, tok)
     x_ref, k_ref = cuda_fwd.forward_rows_plain(a.double(), bfull.double(),
                                                pi.double(), tok)
     assert x.dtype == dtype and k.dtype == torch.int32 and x.shape == x_ref.shape
@@ -508,8 +513,8 @@ def test_k1_rows_match_forward_rows_plain_on_the_card(cuda_device, m, dtype, ato
 
 @pytest.mark.gpu
 def test_k1_f64_issues_dmma_and_no_block_barrier_in_its_loop(cuda_device):
-    """Every f64 instantiation of K1 (8-row tiles at every size, 16-row
-    ones up to M = 136) runs its product on the FP64 tensor cores (DMMA),
+    """Every f64 instantiation of K1 (8-row tiles, one a size) runs its
+    product on the FP64 tensor cores (DMMA),
     no f32 one does, and every one has one block barrier, the one before
     its column loop."""
     import re
@@ -521,7 +526,7 @@ def test_k1_f64_issues_dmma_and_no_block_barrier_in_its_loop(cuda_device):
              if "k1_rows" in n}
     f64 = [n for n in funcs if "k1_rows_f64" in n]
     f32 = [n for n in funcs if "k1_rows_f32" in n]
-    assert len(f64) == 45 and len(f32) == 7
+    assert len(f64) == 28 and len(f32) == 7
     for n in f64:
         assert "DMMA" in funcs[n], n
     for n in f32:
