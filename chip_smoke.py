@@ -80,16 +80,21 @@ power limit):
    column segments (the threshold lowered) must equal its one-pass path;
 8. the posterior path: ``itrails_tpu_torch.cli.posterior.main`` at 3x3 on
    phase 3's MAF with phase 4's ``.best_model.yaml``, at its default
-   ``--precision float64`` (K4 in f64), with K4's counters reset just
-   before and read just after (launches: exactly two per window group and
-   long block); every column of every block it writes held against the
-   f64 plain version at atol 1e-10 (the one-window long block on the CPU,
-   in a process of its own while the card runs the CLI), the CSV's header
-   and row count checked and rows of every block read back as the card's
-   values; seconds split into decode and write;
-9. the segmented posterior: the 320 kb block in 65,536-column segments
-   (the store budget lowered below one window of it) must give phase 8's
-   one-pass rows bit for bit;
+   ``--precision float64`` (K4 and K5 in f64), with K4's and K5's counters
+   reset just before and read just after: the short blocks' window groups
+   take two K4 launches each, the 320 kb block goes through the
+   sequence-parallel route (``longseq.posterior_long_pieces``: K5 twice and
+   one K4 call over its chunk windows a group of chunks), and no K4 call
+   walks more than 262,144 columns; every column of every block it writes
+   held against the f64 plain version at atol 1e-10 (the long block's
+   one-window walk on the CPU, in a process of its own while the card runs
+   the CLI), the CSV's header and row count checked and rows of every block
+   read back as the card's values; seconds split into decode and write;
+9. the route in groups: the 320 kb block with the operator budget, then
+   the store budget, lowered to five groups, within 1e-12 of phase 8's
+   one-group rows, with launch counts and peak device memory; and the
+   segmented reference ``decoders.posterior_segmented`` in 65,536-column
+   segments, bit for bit the one-window K4 rows of the block;
 10. the long-block value: phase 3's 320 kb block and a 1e7-column block
    simulated from the 3x3 model, and a 320 kb block simulated from the 7x7
    model, each through K5 and the operator product, K1 as a one-window
@@ -106,7 +111,16 @@ power limit):
    every gradient entry rtol 2e-3), with its milliseconds and peak device
    memory, and K2's one-window walk timed on the 3x3 320 kb block; then,
    on the 320 kb blocks, K5, the boundary rows and K2 timed apart at chunks
-   of 256, 512 and 1,024 columns.
+   of 256, 512 and 1,024 columns;
+12. the long-block posterior in f64: the route on phase 3's 320 kb block
+   and a 320 kb block simulated from the 7x7 model against K4 walking the
+   block as one window on the card (and, at 3x3, the route's plain version)
+   at atol 1e-10, on f32 tables against the f64 plain version at 2e-5
+   (3x3), with its milliseconds and peak device memory; its stages (K5 on
+   a, K5 on a^T, the boundary rows, K4 on the chunk windows, the rows to the
+   host) timed apart at chunks of 256, 512 and 1,024 columns; and 1e7
+   columns simulated from the 3x3 model against
+   ``decoders.posterior_segmented`` on the card at atol 1e-10.
 
 Any failure exits non-zero.  The last two lines are the kernels' JSON
 record and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -149,8 +163,8 @@ GRAD_RTOL = 2e-3
 # phase 2: K3 on a 3x3 model with two exchangeable states, windows x columns
 TIE_SHAPE = (512, 2048)
 # phases 7 and 9: the segment threshold and segment length the 320 kb block
-# gets (phase 9 lowers K4's store budget to one window of the threshold's
-# columns)
+# gets (phase 7's Viterbi; phase 9's posterior_segmented, the route's
+# reference, takes the segment length)
 SEGMENTS = (262_145, 65_536)
 # phase 2: K4 against its f64 plain version, per non-PAD entry, as
 # tests/test_pallas_fwd.py:78 holds the TPU kernel against the scan
@@ -164,6 +178,8 @@ LONG_BLOCK = 320_000
 LONG_SIM = (1000, 10_000)
 # phase 11: the chunk lengths of the gradient route that are timed
 GRAD_CHUNKS = (256, 512, 1024)
+# phase 12: the chunk lengths of the posterior route that are timed
+POSTERIOR_CHUNKS = (256, 512, 1024)
 # phase 2: K5 against its plain version in f64 on the same f32 tables:
 # operators (max entry 1) and log scales, at the tolerance of the port's
 # CPU test against the Pallas operator kernel
@@ -1617,15 +1633,15 @@ def phase_segmented(card, dev, cli, best_yaml):
 
 def phase_posterior_cli(card, dev, workdir, cli, best_yaml):
     """The posterior path: the posterior CLI at 3x3 on phase 3's MAF, with
-    phase 4's best model as its config, on the card.  Returns K4's launches
-    and the rows it wrote for the long block."""
+    phase 4's best model as its config, on the card.  Returns K4's and K5's
+    launches and the rows it wrote for the long block."""
     import torch
 
     from itrails_tpu_torch.cli import decode
     from itrails_tpu_torch.cli.common import prepare_decode_setup
     from itrails_tpu_torch.cli.posterior import main
     from itrails_tpu_torch.config import load_config
-    from itrails_tpu_torch.hmm import cuda_posterior, decoders, windows
+    from itrails_tpu_torch.hmm import cuda_longseq, cuda_posterior, decoders, longseq, windows
 
     v_lst = cli["v_lst"]
     lengths = [len(v) for v in v_lst]
@@ -1635,10 +1651,10 @@ def phase_posterior_cli(card, dev, workdir, cli, best_yaml):
                                        decode.LONG_BLOCK_THRESHOLD)
     long_blocks = [i for i, n in enumerate(lengths)
                    if n > decode.LONG_BLOCK_THRESHOLD]
-    check(len(long_blocks) == 1
-          and lengths[long_blocks[0]] * row_bytes
-          <= cuda_posterior.POSTERIOR_BUDGET_BYTES,
-          "phase 8 expects one long block decoded in one pass")
+    check(len(long_blocks) == 1, "phase 8 expects one long block")
+    route = longseq.posterior_ranges(lengths[long_blocks[0]], n_states, dev,
+                                     torch.float64)
+    n_calls = len(groups) - 1 + len(route)  # the window groups, the route's
     out = os.path.join(workdir, "posterior_card", "sim")
 
     # the long block's f64 reference, on the CPU in a process of its own
@@ -1656,6 +1672,12 @@ def phase_posterior_cli(card, dev, workdir, cli, best_yaml):
         pieces = []
         seconds = {"decode": 0.0, "writer": 0.0}
         run, write = decode.run_posterior, decode.write_posterior_csv
+        k4 = cuda_posterior.posterior_fused
+        shapes = []  # each K4 call's (W, T)
+
+        def recorded(a, bfull, pi, tokens, **rows):
+            shapes.append(tuple(tokens.shape))
+            return k4(a, bfull, pi, tokens, **rows)
 
         def capture(*args):  # the rows the CLI writes, and the decode's time
             it = run(*args)
@@ -1675,17 +1697,22 @@ def phase_posterior_cli(card, dev, workdir, cli, best_yaml):
             seconds["writer"] += time.perf_counter() - t0
 
         decode.run_posterior, decode.write_posterior_csv = capture, timed_write
+        # in place of the wrapper, which counts on its module name: the
+        # counts land on the recorder while it is there
+        cuda_posterior.posterior_fused = recorded
         try:
-            cuda_posterior.posterior_fused.calls = 0
-            cuda_posterior.posterior_fused.launches = 0
+            recorded.calls = 0
+            recorded.launches = 0
+            cuda_longseq.chunk_operators_fused.launches = 0
             t0 = time.perf_counter()
             main([best_yaml, "--output", out])
             torch.cuda.synchronize()
             cli_s = time.perf_counter() - t0
-            calls = cuda_posterior.posterior_fused.calls
-            launches = cuda_posterior.posterior_fused.launches
+            calls, launches = recorded.calls, recorded.launches
+            k5_launches = cuda_longseq.chunk_operators_fused.launches
         finally:
             decode.run_posterior, decode.write_posterior_csv = run, write
+            cuda_posterior.posterior_fused = k4
         t0 = time.perf_counter()
         rc = ref_proc.wait()
         ref_wait_s = time.perf_counter() - t0
@@ -1696,10 +1723,18 @@ def phase_posterior_cli(card, dev, workdir, cli, best_yaml):
         log.close()
     with open(ref_path + ".log") as f:
         check(rc == 0, f"the long block's reference exited {rc}:\n{f.read()[-2000:]}")
-    check(calls == len(groups) and launches == 2 * len(groups),
+    check(calls == n_calls and launches == 2 * n_calls and len(shapes) == calls,
           f"K4 called {calls} times with {launches} launches; the CLI's "
-          f"{len(groups)} window group(s) and long block take {len(groups)} "
-          f"calls and {2 * len(groups)} launches")
+          f"{len(groups) - 1} window group(s) and the long block's {len(route)} "
+          f"route group(s) take {n_calls} calls and {2 * n_calls} launches")
+    check(k5_launches == 2 * len(route),
+          f"K5 launched {k5_launches} times for {len(route)} route group(s): "
+          "two a group, on a and on a^T")
+    chunk_calls = [w for w, t in shapes if t == longseq.POSTERIOR_CHUNK + 1]
+    check(sum(chunk_calls) == route[-1][1]
+          and all(t <= decode.LONG_BLOCK_THRESHOLD for _, t in shapes),
+          f"K4 walked a block above {decode.LONG_BLOCK_THRESHOLD} columns as one "
+          f"window, or the long block not as chunk windows: {shapes}")
 
     # every column of every block against the f64 plain version
     blocks = {}
@@ -1714,22 +1749,28 @@ def phase_posterior_cli(card, dev, workdir, cli, best_yaml):
           "misshapen posterior rows: the CLI's default is f64")
     setup = prepare_decode_setup(load_config(best_yaml))
     _, a, bfull, pi = decode.build(setup, "float64", dev, posterior=True)
-    errs, per_batch = [], []  # per batch: max abs err, and K4 alone
+    errs, per_batch = [], []  # per batch: max abs err, and its decode alone
     for group in groups:
         if group == long_blocks:
-            tok = np.asarray(v_lst[group[0]], np.int32)[None, :]
+            tok = torch.as_tensor(np.asarray(v_lst[group[0]], np.int32),
+                                  device=dev)
             errs.append(float(np.abs(rows[group[0]] - np.load(ref_path)).max()))
-        else:
-            tok, _, _ = windows.pack_windows([v_lst[i] for i in group])
-            ref, _ = cuda_posterior.posterior_fused_plain(
-                a, bfull, pi, torch.as_tensor(tok, device=dev))
-            errs.append(max(float((torch.as_tensor(rows[i], device=dev).double()
-                                   - ref[:lengths[i], w]).abs().max())
-                            for w, i in enumerate(group)))
-            del ref
+            ms = cuda_ms(lambda: list(longseq.posterior_long_pieces(a, bfull, pi,
+                                                                    tok)), 1)
+            per_batch.append(f"the long block {len(tok)} columns: the route ("
+                             f"{len(route)} group(s) of (C, "
+                             f"{longseq.POSTERIOR_CHUNK + 1}) windows) {ms:.2f} ms, "
+                             f"max abs err {errs[-1]:.3g}")
+            continue
+        tok, _, _ = windows.pack_windows([v_lst[i] for i in group])
         tok = torch.as_tensor(tok, device=dev)
+        ref, _ = cuda_posterior.posterior_fused_plain(a, bfull, pi, tok)
+        errs.append(max(float((torch.as_tensor(rows[i], device=dev).double()
+                               - ref[:lengths[i], w]).abs().max())
+                        for w, i in enumerate(group)))
+        del ref
         ms = cuda_ms(lambda: cuda_posterior.posterior_fused(a, bfull, pi, tok), 1)
-        per_batch.append(f"{tuple(tok.shape)} {ms:.2f} ms, max abs err "
+        per_batch.append(f"K4 {tuple(tok.shape)} {ms:.2f} ms, max abs err "
                          f"{errs[-1]:.3g}")
     err = max(errs)
     check(err <= POST64_ATOL, f"the CLI's posterior is off the f64 plain "
@@ -1762,65 +1803,117 @@ def phase_posterior_cli(card, dev, workdir, cli, best_yaml):
     print(f"{card} | phase 8 posterior CLI 3x3 on {sum(lengths)} columns in "
           f"{len(lengths)} blocks ({len(long_blocks)} long), config "
           f"{os.path.basename(best_yaml)} of phase 4: {cli_s:.2f} s on the card "
-          f"(host clock) = decode {seconds['decode']:.2f} s (K4 and the copy to "
-          f"the host) + write {seconds['writer'] - seconds['decode']:.2f} s + "
+          f"(host clock) = decode {seconds['decode']:.2f} s (K4, the long "
+          f"block's route and the copies to the host; 0.62 s in PR 14, the long "
+          f"block walked by one warp) + write "
+          f"{seconds['writer'] - seconds['decode']:.2f} s + "
           f"MAF, build and hidden states "
           f"{cli_s - seconds['writer']:.2f} s; K4 (f64, the CLI's default) "
           f"calls {calls}, launches "
-          f"{launches} ({len(groups)} batch(es)); every column within "
+          f"{launches} ({len(groups) - 1} window group(s) + {len(route)} route "
+          f"group(s); no call on more than {decode.LONG_BLOCK_THRESHOLD} columns), "
+          f"K5 launches {k5_launches}; every column within "
           f"{err:.3g} of the f64 plain version (atol {POST64_ATOL:g}; the long "
-          f"block's reference on the CPU, waited {ref_wait_s:.1f} s after the "
-          f"CLI); K4 alone per batch: {'; '.join(per_batch)}; CSV "
+          f"block's one-window reference on the CPU, waited {ref_wait_s:.1f} s "
+          f"after the CLI); per batch alone: {'; '.join(per_batch)}; CSV "
           f"{os.path.getsize(path)} bytes, header and {n_lines} rows checked, "
           f"{len(samples)} sampled rows equal to the card's f64 values")
-    return launches, rows[long_blocks[0]]
+    return launches, k5_launches, rows[long_blocks[0]]
 
 
-def phase_posterior_segmented(card, dev, cli, best_yaml, one_pass):
-    """The segmented posterior on the card: the 320 kb block in segments,
-    the store budget lowered, against phase 8's one-pass rows."""
+def phase_posterior_groups(card, dev, cli, best_yaml, route_rows):
+    """The route in several groups and the segmented reference: the 320 kb
+    block through the route with, in turn, the operator budget and the store
+    budget lowered to a fifth of its chunks, against phase 8's one-group
+    rows; then ``decoders.posterior_segmented`` with SEGMENTS' segment
+    length, bit for bit the one-window K4 rows of the block."""
     import torch
 
     from itrails_tpu_torch.cli import decode
     from itrails_tpu_torch.cli.common import prepare_decode_setup
     from itrails_tpu_torch.config import load_config
-    from itrails_tpu_torch.hmm import cuda_posterior, decoders
+    from itrails_tpu_torch.hmm import cuda_longseq, cuda_posterior, decoders, longseq
 
     setup = prepare_decode_setup(load_config(best_yaml))
     _, a, bfull, pi = decode.build(setup, "float64", dev, posterior=True)
     (block,) = [v for v in cli["v_lst"] if len(v) > decode.LONG_BLOCK_THRESHOLD]
-    threshold, seg_cols = SEGMENTS
-    check(len(block) > threshold, "the long block is below the segment threshold")
-    budget = threshold * cuda_posterior.store_row_bytes(a.shape[0], dev, a.dtype)
-    saved = cuda_posterior.POSTERIOR_BUDGET_BYTES, decoders.SEGMENT_COLUMNS
-    cuda_posterior.POSTERIOR_BUDGET_BYTES, decoders.SEGMENT_COLUMNS = (budget,
-                                                                       seg_cols)
+    tok = torch.as_tensor(np.asarray(block, np.int32), device=dev)
+    m = a.shape[0]
+    chunk = longseq.POSTERIOR_CHUNK
+    per_group = -(-(-(-(len(block) - 1) // chunk)) // 5)
+    saved = longseq.OPERATOR_BUDGET_BYTES, cuda_posterior.POSTERIOR_BUDGET_BYTES
+    parts = []
+    for name, budgets in (
+            ("operator budget", (per_group * 2 * m * m * 16, saved[1])),
+            ("store budget", (saved[0], per_group * (chunk + 1)
+                              * cuda_posterior.store_row_bytes(m, dev, a.dtype)))):
+        longseq.OPERATOR_BUDGET_BYTES, cuda_posterior.POSTERIOR_BUDGET_BYTES = budgets
+        try:
+            n_groups = len(longseq.posterior_ranges(len(block), m, dev, a.dtype))
+            calls = cuda_posterior.posterior_fused.calls
+            k5 = cuda_longseq.chunk_operators_fused.launches
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            pieces = [p.cpu().numpy()
+                      for p in longseq.posterior_long_pieces(a, bfull, pi, tok)]
+            route_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            calls = cuda_posterior.posterior_fused.calls - calls
+            k5 = cuda_longseq.chunk_operators_fused.launches - k5
+        finally:
+            longseq.OPERATOR_BUDGET_BYTES, cuda_posterior.POSTERIOR_BUDGET_BYTES = saved
+        check(n_groups >= 3 and len(pieces) == n_groups and calls == n_groups
+              and k5 == 4 * n_groups - 2,
+              f"the route under the lowered {name}: {len(pieces)} pieces, K4 "
+              f"called {calls} times and K5 launched {k5} times for {n_groups} "
+              "groups (K4 once a group; K5 twice a group, and once a direction "
+              "for each group's product but the last's)")
+        grouped = np.concatenate(pieces)
+        err = float(np.abs(grouped - route_rows).max())
+        check(grouped.shape == route_rows.shape and err <= 1e-12,
+              f"the route in {n_groups} groups is off phase 8's one-group rows "
+              f"by {err:.3g} (atol 1e-12)")
+        parts.append(f"under the lowered {name}, {n_groups} groups: K4 calls "
+                     f"{calls}, K5 launches {k5}, within {err:.3g} of phase 8's "
+                     f"one-group rows (atol 1e-12), {route_s:.3f} s (host clock, "
+                     f"copies to the host included), peak device memory {peak} "
+                     "bytes")
+
+    one = decoders.posterior_fast(a, bfull, pi, tok[None, :])[:, 0, :]
+    seg_cols = SEGMENTS[1]
+    saved_cols = decoders.SEGMENT_COLUMNS
+    decoders.SEGMENT_COLUMNS = seg_cols
     try:
         cuda_posterior.posterior_fused.launches = 0
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
         t0 = time.perf_counter()
-        pieces = [rows for _, rows in decode.run_posterior(a, bfull, pi, [block])]
+        lo, equal, n_pieces = 0, True, 0
+        for piece in decoders.posterior_segmented(a, bfull, pi, tok):
+            equal &= bool(torch.equal(piece, one[lo:lo + len(piece)]))
+            lo += len(piece)
+            n_pieces += 1
         seg_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated(dev) - base
         launches = cuda_posterior.posterior_fused.launches
     finally:
-        cuda_posterior.POSTERIOR_BUDGET_BYTES, decoders.SEGMENT_COLUMNS = saved
+        decoders.SEGMENT_COLUMNS = saved_cols
     n_seg = -(-(len(block) - 1) // seg_cols)
-    check(len(pieces) == n_seg and launches == 3 * n_seg - 1,
-          f"segmented posterior: {len(pieces)} pieces and {launches} K4 launches "
+    check(n_pieces == n_seg and launches == 3 * n_seg - 1,
+          f"segmented posterior: {n_pieces} pieces and {launches} K4 launches "
           f"for {n_seg} segments")
-    segmented = np.concatenate(pieces)
-    check(segmented.shape == one_pass.shape
-          and np.array_equal(segmented, one_pass),
-          "the segmented posterior differs from the one-pass rows at "
-          f"{int((segmented != one_pass).any(axis=-1).sum())} columns")
-    print(f"{card} | phase 9 segmented posterior on the card: the "
-          f"{len(block)}-column block in {n_seg} segments of {seg_cols} columns "
+    check(equal and lo == len(block),
+          "the segmented posterior differs from the one-window K4 rows")
+    route_err = float((one - torch.as_tensor(route_rows, device=dev)).abs().max())
+    print(f"{card} | phase 9 the posterior route in groups and the segmented "
+          f"reference on the {len(block)}-column block: "
+          + "; ".join(parts)
+          + f"; posterior_segmented in {n_seg} segments of {seg_cols} columns "
           f"({launches} K4 launches: {n_seg - 1} beta sweeps + {n_seg} x 2) "
-          f"equals phase 8's one-pass rows bit for bit; {seg_s:.3f} s (host "
-          f"clock, copies to the host included), peak device memory of the "
-          f"segmented decode {peak} bytes")
+          f"equals the one-window K4 rows bit for bit, {seg_s:.3f} s (host "
+          f"clock), peak device memory {peak} bytes; the one-window rows are "
+          f"within {route_err:.3g} of the route's (phase 8)")
 
 
 def timed(fn):
@@ -2025,6 +2118,157 @@ def phase_long_grad(card, dev, cli):
           + "; ".join(sweep))
 
 
+def phase_long_posterior(card, dev, cli):
+    """A long block's posterior through the sequence-parallel route (K5 on
+    ``a`` and on ``a^T``, the entry and exit rows, one K4 call over the
+    chunk windows) in f64, the posterior CLI's default: on phase 3's 320 kb
+    block at 3x3 and a simulated 320 kb block at 7x7, against K4 walking the
+    block as one window on the card (and, at 3x3, against the route's plain
+    version on the card) at POST64_ATOL, with the route's milliseconds and
+    peak device memory, and on f32 tables against the f64 plain version at
+    POST_ATOL; the route's stages (K5 on a, K5 on a^T, the boundary rows, K4
+    on the chunk windows, the rows to the host) timed apart at each of
+    POSTERIOR_CHUNKS; then 1e7 simulated columns at 3x3 against
+    ``decoders.posterior_segmented`` on the card, segment by segment, at
+    POST64_ATOL."""
+    import torch
+
+    from itrails_tpu_torch.hmm import (cuda_fwd, cuda_longseq, cuda_posterior,
+                                       decoders, longseq)
+
+    (block,) = [v for v in cli["v_lst"] if len(v) == LONG_BLOCK]
+    cases = [("3x3 320 kb block of phase 3", 3, 3,
+              torch.as_tensor(block, device=dev)),
+             ("7x7 320 kb", 7, 7, simulated_block(dev, 7, 7, 17))]
+    parts, sweep = [], []
+    for label, n_ab, n_abc, tok in cases:
+        tables = [x.contiguous() for x in build_tables(n_ab, n_abc, dev)[:3]]
+        a, bfull, pi = tables
+        m = a.shape[0]
+        (one, _), one_ms = timed(
+            lambda: cuda_posterior.posterior_fused(*tables, tok[None]))
+        one = one[:, 0, :]
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        k4, k5 = (cuda_posterior.posterior_fused.calls,
+                  cuda_longseq.chunk_operators_fused.launches)
+        route, ms = timed(lambda: longseq.posterior_long(*tables, tok))
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        check((cuda_posterior.posterior_fused.calls - k4,
+               cuda_longseq.chunk_operators_fused.launches - k5) == (1, 2),
+              f"{label}: the route did not call K4 once and launch K5 twice")
+        err = float((route - one).abs().max())
+        check(route.dtype == torch.float64 and route.shape == one.shape
+              and err <= POST64_ATOL,
+              f"{label}: the route off one-window K4 by {err:.3g} (atol "
+              f"{POST64_ATOL:g})")
+        f32 = [x.float().contiguous() for x in tables]
+        got32, ms32 = timed(lambda: longseq.posterior_long(*f32, tok))
+        if m == 27:
+            plain, plain_ms = timed(lambda: longseq.posterior_long_plain(*tables,
+                                                                          tok))
+            err_plain = float((route - plain).abs().max())
+            err32 = float((got32.double() - plain).abs().max())
+            del plain
+        else:
+            err32 = float((got32.double() - one).abs().max())
+        del route, got32
+        # its memory in the allocator's cache, as a stream of blocks finds it
+        ms_again = timed(lambda: longseq.posterior_long(*tables, tok))[1]
+        bound_ms, bound_by = k4_bound_ms(m, tok[None], size=8)
+        line = (f"{label} (M={m}, {len(tok)} columns, chunk "
+                f"{longseq.POSTERIOR_CHUNK}): route {ms:.3f} / {ms_again:.3f} ms "
+                f"(first call / a later one; K4's function's bound {bound_ms:.4f} ms, "
+                f"{bound_by}), peak device memory {peak} bytes; one-window K4 "
+                f"{one_ms:.2f} ms ({one_ms / ms_again:.1f}x the route), the route "
+                f"within {err:.3g} of it (atol {POST64_ATOL:g})")
+        if m == 27:
+            check(err_plain <= POST64_ATOL and err32 <= POST_ATOL,
+                  f"{label}: the route off its f64 plain version by "
+                  f"{err_plain:.3g} (atol {POST64_ATOL:g}), on f32 tables by "
+                  f"{err32:.3g} (atol {POST_ATOL:g})")
+            line += (f", within {err_plain:.3g} of its f64 plain version "
+                     f"({plain_ms:.1f} ms); on f32 tables {ms32:.3f} ms, within "
+                     f"{err32:.3g} of the f64 plain version (atol {POST_ATOL:g})")
+        else:
+            line += (f"; on f32 tables {ms32:.3f} ms, {err32:.3g} off one-window "
+                     "K4 in f64 (no gate)")
+        parts.append(line)
+
+        _, al0, _ = cuda_fwd.column0(bfull, pi, tok[:1])
+        ones = torch.ones_like(al0[0])
+        for chunk in POSTERIOR_CHUNKS:
+            got = longseq.posterior_long(*tables, tok, chunk=chunk)
+            err_c = float((got - one).abs().max())
+            check(err_c <= POST64_ATOL, f"{label} chunk {chunk}: off one-window "
+                                        f"K4 by {err_c:.3g}")
+            del got
+            route_ms = timed(lambda: longseq.posterior_long(*tables, tok,
+                                                            chunk=chunk))[1]
+            n_chunks = -(-(len(tok) - 1) // chunk)
+            stream = longseq.chunk_matrix(tok, 0, n_chunks, chunk)
+            (g_ops, _), fwd_ms = timed(
+                lambda: cuda_longseq.chunk_operators_fused(a, bfull, stream))
+            (k_ops, _), bwd_ms = timed(
+                lambda: cuda_longseq.chunk_operators_fused(a.T.contiguous(),
+                                                           bfull, stream))
+            (alpha, beta), rows_ms = timed(
+                lambda: (longseq.entry_rows(g_ops, al0[0]),
+                         longseq.exit_rows(k_ops, ones)))
+            del g_ops, k_ops
+            windows = torch.cat([tok[0:n_chunks * chunk:chunk, None], stream],
+                                dim=1)
+            (post, _), k4_ms = timed(
+                lambda: cuda_posterior.posterior_fused(
+                    a, bfull, pi, windows, alpha0=alpha, beta_exit=beta))
+
+            def to_host():
+                rows = torch.empty((1 + n_chunks * chunk, m), dtype=post.dtype,
+                                   device=dev)
+                rows[1:].view(n_chunks, chunk, m).copy_(post[1:].transpose(0, 1))
+                rows[0] = post[0, 0]
+                return rows[:len(tok)].cpu()
+
+            _, host_ms = timed(to_host)
+            del post, alpha, beta, windows
+            sweep.append(f"{label} M={m} L={chunk} C={n_chunks}: K5 on a "
+                         f"{fwd_ms:.3f} + K5 on a^T {bwd_ms:.3f} + boundary rows "
+                         f"{rows_ms:.3f} + K4 {k4_ms:.3f} + rows to the host "
+                         f"{host_ms:.3f} = "
+                         f"{fwd_ms + bwd_ms + rows_ms + k4_ms + host_ms:.3f} ms, "
+                         f"route {route_ms:.3f} ms, max abs err {err_c:.3g}")
+        del one
+
+    # 1e7 columns: the route against posterior_segmented, segment by segment
+    tables = [x.contiguous() for x in build_tables(3, 3, dev)[:3]]
+    tok = simulated_block(dev, 3, 3, 18, LONG_SIM)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    route, ms = timed(lambda: longseq.posterior_long(*tables, tok))
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    n_groups = len(longseq.posterior_ranges(len(tok), 27, dev, torch.float64))
+    t0 = time.perf_counter()
+    lo, err, n_seg = 0, 0.0, 0
+    for piece in decoders.posterior_segmented(*tables, tok):
+        err = max(err, float((piece - route[lo:lo + len(piece)]).abs().max()))
+        lo += len(piece)
+        n_seg += 1
+    torch.cuda.synchronize()
+    seg_s = time.perf_counter() - t0
+    check(lo == len(tok) and err <= POST64_ATOL,
+          f"3x3 1e7 columns: the route off posterior_segmented by {err:.3g} "
+          f"(atol {POST64_ATOL:g})")
+    del route
+    parts.append(f"3x3 {len(tok)} columns: route {ms:.3f} ms in {n_groups} "
+                 f"group(s), peak device memory {peak} bytes, within {err:.3g} "
+                 f"of posterior_segmented ({n_seg} segments, {seg_s:.2f} s, host "
+                 f"clock) (atol {POST64_ATOL:g})")
+    print(f"{card} | phase 12 long-block posterior, the route on f64 tables: "
+          + "; ".join(parts))
+    print(f"{card} | phase 12 chunk length, each stage timed alone after the "
+          f"route (CUDA events, one call each): " + "; ".join(sweep))
+
+
 def main():
     import torch
 
@@ -2073,23 +2317,26 @@ def run_phases(card, dev, t_start):
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
         k1_launches, _, cli = phase_cli(card, dev, work)
-        k2_calls, k5_launches, best_yaml = phase_cli_grad(card, dev, work, cli)
+        k2_calls, _, best_yaml = phase_cli_grad(card, dev, work, cli)
         phase_genome(card, dev)
         phase_cli_fd(card, dev, work, cli)  # its CPU run started in phase 3
         k3_launches = phase_viterbi_cli(card, dev, work, cli, best_yaml)
         phase_segmented(card, dev, cli, best_yaml)
-        k4_launches, long_rows = phase_posterior_cli(card, dev, work, cli,
-                                                     best_yaml)
-        phase_posterior_segmented(card, dev, cli, best_yaml, long_rows)
+        k4_launches, k5_post_launches, long_rows = phase_posterior_cli(
+            card, dev, work, cli, best_yaml)
+        phase_posterior_groups(card, dev, cli, best_yaml, long_rows)
         phase_long_value(card, dev, cli)
         phase_long_grad(card, dev, cli)
+        phase_long_posterior(card, dev, cli)
     print(f"{card} | all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     # each record at the genome-scale 3x3 shape of phase 2 (K1, K4 and K5
     # in f64, the CLIs' default; K5 on the 313 chunks of a 320 kb block);
-    # launches from the CLI run of its own path (K1: phase 3, K2 and K5:
-    # phase 4, the main path, where each K2 call launches its two kernels,
-    # K3: phase 6, two kernels a call, K4: phase 8, two kernels a call)
+    # launches from the CLI run of its own path (K1: phase 3, K2: phase 4,
+    # the main path, where each K2 call launches its two kernels, K3: phase
+    # 6, two kernels a call, K4 and K5: phase 8, the posterior path, K4 two
+    # kernels a call, K5 twice a group of the long block's chunks; K5's
+    # launches on the main path, phase 4, are printed there)
     record = {"kernels": [{
         "name": "k1_forward",
         "route": "cuda",
@@ -2127,7 +2374,7 @@ def run_phases(card, dev, t_start):
         "route": "cuda",
         "source": "itrails_tpu_torch/csrc/operators.cu",
         "replaces": "tools/exp_opkernel.py:97",
-        "launches": k5_launches,
+        "launches": k5_post_launches,
         # no single PyTorch call computes a chunk's chain of products
         "library_ms": None,
         **k5[0],

@@ -188,9 +188,11 @@ def run_viterbi(a, bfull, pi, v_lst):
 def run_posterior(a, bfull, pi, v_lst):
     """Posterior decode of every block on the tables' device, as a generator
     of ``(block_idx, rows)`` in block and column order
-    (``decoders.posterior_stream``, with this CLI's LONG_BLOCK_THRESHOLD): a
-    block may come in several pieces, and nothing holds more than one window
-    group's or one segment's posterior."""
+    (``decoders.posterior_stream``, with this CLI's LONG_BLOCK_THRESHOLD):
+    the short blocks in window groups, each block above the threshold
+    through the sequence-parallel route ``longseq.posterior_long_pieces``,
+    in pieces of one group of its chunks each.  Nothing holds more than one
+    window group's or one chunk group's posterior."""
     return decoders.posterior_stream(a, bfull, pi, v_lst, LONG_BLOCK_THRESHOLD)
 
 
@@ -320,7 +322,7 @@ def write_posterior_csv(path, results, coords):
                     f"{block_idx},{p}," + ",".join(map(repr, row)) + "\n"
                     for p, row in zip(pos, chunk.tolist())))
             offset += len(rows)
-            del rows  # the piece's group or segment goes before the next decode
+            del rows  # the piece's group goes before the next decode
         if block is None:  # no block: the header alone, with no state
             writer.writerow(["alignment_block_idx", "position_idx"])
     print(f"Posterior decoding complete. Results saved to {path}.")

@@ -27,7 +27,9 @@ same kernels instantiated on each scalar.  The posterior CLI's default,
 :func:`posterior_fused_plain` only for tensors on the CPU; a CUDA input
 that the kernel does not take raises.  It takes an entry alpha in place of
 column 0 and an exit beta in place of the ones, and :func:`beta_sweep` runs
-the reverse sweep alone; the segmented route
+the reverse sweep alone: a long block's chunk route
+(``hmm/longseq.py:posterior_long_pieces``) enters and leaves each chunk
+window through the first two, and its bounded-memory reference
 (``hmm/decoders.py:posterior_segmented``) needs all three.  A call holds
 one store, the alpha that the reverse sweep overwrites with gamma: (T, W,
 32S) on the card, (T, W, M) in the plain version, in the tables' dtype.  Callers keep it under POSTERIOR_BUDGET_BYTES with
@@ -55,8 +57,8 @@ __all__ = ["POSTERIOR_BUDGET_BYTES", "beta_sweep", "beta_sweep_plain", "build",
 
 _SRC = CSRC / "posterior.cu"
 # Bytes of one call's store: on the card 4096 windows of 8192 columns at
-# M <= 32 in float32, 2048 in float64.  A single window above it is decoded
-# in segments (hmm/decoders.py:posterior_stream).
+# M <= 32 in float32, 2048 in float64.  A long block's chunk windows go in
+# groups under it (hmm/longseq.py:posterior_long_pieces).
 POSTERIOR_BUDGET_BYTES = 1 << 32
 # Columns whose emission rows the plain version gathers at once.
 _CHUNK = 1024

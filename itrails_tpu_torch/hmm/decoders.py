@@ -9,10 +9,12 @@ reference decoders: a log-space forward scan with a per-step max shift
 (``hmm/cuda_viterbi.py``) on the card, its plain version on the CPU.
 ``viterbi_segmented`` decodes one long block in bounded memory.
 ``posterior_fast`` is K4's dispatch: kernel K4 (``hmm/cuda_posterior.py``)
-on the card, its plain version on the CPU; ``posterior_segmented`` streams
-one long block's posterior in bounded memory, and ``posterior_stream``,
-what the posterior CLI calls, streams every block's posterior in bounded
-memory.
+on the card, its plain version on the CPU; ``posterior_stream``, what the
+posterior CLI calls, streams every block's posterior in bounded memory, a
+long block's through the sequence-parallel route
+``longseq.posterior_long_pieces``.  ``posterior_segmented`` streams one
+long block's posterior in bounded memory as one warp's walk, bit for bit
+the one-window rows: the card's reference for the route.
 
 Padding: windows are right-padded with ``PAD_TOKEN``; padded steps carry
 state through unchanged so every quantity equals the unpadded computation.
@@ -24,7 +26,8 @@ import numpy as np
 import torch
 
 from itrails_tpu_torch.data.tokens import PAD_TOKEN
-from itrails_tpu_torch.hmm import cuda_fwd, cuda_posterior, cuda_viterbi, windows
+from itrails_tpu_torch.hmm import (cuda_fwd, cuda_posterior, cuda_viterbi,
+                                   longseq, windows)
 
 __all__ = ["emission_table", "forward", "forward_loglik",
            "forward_loglik_fast", "posterior_fast", "posterior_groups",
@@ -216,12 +219,13 @@ def posterior_stream(a, bfull, pi, v_lst, long_threshold):
 
     Each batch of :func:`posterior_groups` is decoded, copied to the host
     and handed on before the next one runs: the short blocks as padded
-    window groups, each block above ``long_threshold`` as a one-window
-    batch, or, when one window's store would exceed
-    ``cuda_posterior.POSTERIOR_BUDGET_BYTES``, in the pieces of
-    :func:`posterior_segmented`.  So the device holds at most one group's
-    store or one segment's, whatever the number of states and the
-    alignment's size, and the host one group's or one segment's rows."""
+    window groups, and each block above ``long_threshold`` through the
+    sequence-parallel route ``longseq.posterior_long_pieces`` (K5's
+    operators in both directions, then one K4 call over the block's chunk
+    windows), one piece a group of its chunks.  So the device holds at most
+    one window group's store or one chunk group's operators and store,
+    whatever the number of states and the alignment's size, and the host
+    one group's rows."""
     dev = a.device
     m = a.shape[0]
     row_bytes = cuda_posterior.store_row_bytes(m, dev, a.dtype)
@@ -237,12 +241,7 @@ def posterior_stream(a, bfull, pi, v_lst, long_threshold):
             del post
             continue
         v = torch.as_tensor(np.asarray(v_lst[i], np.int32), device=dev)
-        if lengths[i] * row_bytes > cuda_posterior.POSTERIOR_BUDGET_BYTES:
-            for seg in posterior_segmented(a, bfull, pi, v):
-                rows = seg.cpu().numpy()
-                del seg  # the segment's store goes before the next one runs
-                yield i, rows
-        else:
-            post = posterior_fast(a, bfull, pi, v[None, :])
-            yield i, post[:, 0, :].cpu().numpy()
-            del post
+        for piece in longseq.posterior_long_pieces(a, bfull, pi, v):
+            rows = piece.cpu().numpy()
+            del piece  # the piece goes before the next group runs
+            yield i, rows

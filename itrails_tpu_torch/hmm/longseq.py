@@ -28,6 +28,14 @@ G_{c-1}`` and ``beta_c ~ G_{c+1} ... G_{C-1} 1``, exclusive prefix and
 suffix products read from one tree of pairwise products in f64.  Every
 chunk then goes through one K2 call as a (C, chunk + 1) batch: the
 sequential depth is the chunk's length, and the card runs a warp a chunk.
+
+:func:`posterior_long` gives the block's posterior, the contract of
+``itrails_tpu/hmm/longseq.py:77``, by the same route with kernel K4
+(``hmm/cuda_posterior.py``) in K2's place: alpha at every chunk's entry
+from K5's operators of ``a``, beta at every chunk's exit from K5's
+operators of ``a^T`` (the posterior's backward contracts over the source
+state), then one K4 call over the chunk windows.
+:func:`posterior_long_pieces` streams it, one group of chunks at a time.
 """
 
 from __future__ import annotations
@@ -35,13 +43,16 @@ from __future__ import annotations
 import torch
 
 from itrails_tpu_torch.data.tokens import PAD_TOKEN
-from itrails_tpu_torch.hmm import cuda_fwd, cuda_grad, cuda_longseq
+from itrails_tpu_torch.hmm import (cuda_fwd, cuda_grad, cuda_longseq,
+                                   cuda_posterior)
 from itrails_tpu_torch.hmm.cuda_longseq import chunk_operators
 
-__all__ = ["CHUNK", "GRAD_CHUNK", "OPERATOR_BUDGET_BYTES", "boundary_rows",
-           "chunk_matrix", "chunk_operators", "forward_loglik_long",
-           "forward_loglik_long_and_grads",
-           "forward_loglik_long_and_grads_plain", "forward_loglik_long_plain"]
+__all__ = ["CHUNK", "GRAD_CHUNK", "OPERATOR_BUDGET_BYTES", "POSTERIOR_CHUNK",
+           "boundary_rows", "chunk_matrix", "chunk_operators", "entry_rows",
+           "exit_rows", "forward_loglik_long", "forward_loglik_long_and_grads",
+           "forward_loglik_long_and_grads_plain", "forward_loglik_long_plain",
+           "posterior_long", "posterior_long_pieces", "posterior_long_plain",
+           "posterior_ranges"]
 
 # Columns of one chunk of the value path: the JAX engine's
 # (itrails_tpu/optim/optimizer.py:66).
@@ -59,6 +70,16 @@ GRAD_CHUNK = 512
 # 15,175 chunks (15.5 M columns) at M = 133 in float32, half as many in
 # float64.
 OPERATOR_BUDGET_BYTES = 1 << 30
+# Columns of one chunk of the posterior route, K5's chunk and K4's window
+# less its entry column.  chip_smoke.py's phase 12 times the route in f64
+# on a 320 kb block at 256, 512 and 1,024 columns; in two runs on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md): 11.70 / 11.64 / 12.08 and
+# 5.81 / 5.64 / 6.07 ms at M = 27 (the boundary rows' small host-launched
+# ops take 3.6-8.4 ms of each, with the host's speed) and 89.2 / 88.1 /
+# 94.5 and 89.2 / 87.9 / 94.4 ms at M = 133, where K4 on 1,250 windows of
+# 257 columns takes as long as on 625 of 513 (7.30-7.35 ms) and on 313 of
+# 1,025 twice that.
+POSTERIOR_CHUNK = 512
 
 
 def _normalize_(g):
@@ -146,8 +167,14 @@ def chunk_matrix(tokens, lo, hi, chunk):
 def _groups(t_len, m, size, chunk):
     """``(lo, hi)`` chunk ranges of a block's columns 1..T-1 whose (M, M)
     operators of ``size`` bytes an entry fit OPERATOR_BUDGET_BYTES."""
+    return _ranges(t_len, chunk, OPERATOR_BUDGET_BYTES // (m * m * size))
+
+
+def _ranges(t_len, chunk, per_group):
+    """``(lo, hi)`` ranges of at most ``per_group`` (at least one) of the
+    chunks of a block's columns 1..T-1."""
     n_chunks = -(-(t_len - 1) // chunk)
-    per_group = max(1, OPERATOR_BUDGET_BYTES // (m * m * size))
+    per_group = max(1, per_group)
     return [(lo, min(n_chunks, lo + per_group))
             for lo in range(0, n_chunks, per_group)]
 
@@ -172,21 +199,11 @@ def _unit(v):
     return v / v.sum(dim=-1, keepdim=True).clamp(min=torch.finfo(v.dtype).tiny)
 
 
-def boundary_rows(ops, entry, exit_):
-    """Alpha at every chunk's entry and beta at every chunk's exit, in f64,
-    each row summing to 1.
-
-    ``ops`` (C, M, M) are the chunks' transfer operators G_c (any scale,
-    any float dtype); ``entry`` (M,) is alpha before chunk 0 and ``exit_``
-    (M,) beta after chunk C-1.  Returns ``(alpha, beta)``, both (C, M):
-    ``alpha[c] ~ entry G_0 ... G_{c-1}`` and ``beta[c] ~ G_{c+1} ... G_{C-1}
-    exit_``.  One tree of pairwise products (node i of a level is the
-    product of nodes 2i and 2i+1 of the level below, an odd last node
-    passing up alone), each divided by its max entry, then one pass down
-    it: a left child enters where its parent enters and a right child after
-    its left sibling; a right child exits where its parent exits and a left
-    child before its right sibling.  log2(C) levels of batched products;
-    the levels above ``ops`` hold about C f64 operators in all."""
+def _tree(ops):
+    """The levels of the tree of pairwise products of ``ops`` (C, M, M):
+    level 0 is ``ops``; node i of a level is the product of nodes 2i and
+    2i+1 of the level below, in f64 and divided by its max entry, an odd
+    last node passing up alone."""
     levels = [ops]
     while levels[-1].shape[0] > 1:
         g = levels[-1]
@@ -196,22 +213,80 @@ def boundary_rows(ops, entry, exit_):
         if n % 2:
             p = torch.cat([p, g[-1:].double()])
         levels.append(_normalize_(p)[0])
+    return levels
+
+
+def _entry_pass(levels, entry):
+    """One pass down a :func:`_tree`: a left child enters where its parent
+    enters and a right child after its left sibling."""
     alpha = _unit(entry.double())[None]
-    beta = _unit(exit_.double())[None]
     for g in reversed(levels[:-1]):
         n, m = g.shape[0], g.shape[1]
         half = n // 2
         al = torch.empty((n, m), dtype=torch.float64, device=g.device)
-        be = torch.empty_like(al)
         al[0::2] = alpha
         al[1::2] = _unit((alpha[:half, None, :] @ g[0:2 * half:2].double())[:, 0])
+        alpha = al
+    return alpha
+
+
+def _exit_pass(levels, exit_):
+    """One pass down a :func:`_tree`: a right child exits where its parent
+    exits and a left child before its right sibling."""
+    beta = _unit(exit_.double())[None]
+    for g in reversed(levels[:-1]):
+        n, m = g.shape[0], g.shape[1]
+        half = n // 2
+        be = torch.empty((n, m), dtype=torch.float64, device=g.device)
         be[1::2] = beta[:half]
         be[0:2 * half:2] = _unit((g[1:2 * half:2].double()
                                   @ beta[:half, :, None])[..., 0])
         if n % 2:
             be[-1] = beta[-1]
-        alpha, beta = al, be
-    return alpha, beta
+        beta = be
+    return beta
+
+
+def entry_rows(ops, entry):
+    """Alpha at every chunk's entry, (C, M) in f64, each row summing to 1:
+    ``alpha[c] ~ entry G_0 ... G_{c-1}`` for the chunks' transfer operators
+    ``ops`` (C, M, M) (any scale, any float dtype) and ``entry`` (M,), alpha
+    before chunk 0.  Exclusive prefix products, read from one tree of
+    pairwise products (see :func:`boundary_rows`)."""
+    return _entry_pass(_tree(ops), entry)
+
+
+def exit_rows(ops, exit_):
+    """Beta at every chunk's exit, (C, M) in f64, each row summing to 1:
+    ``beta[c] ~ G_{c+1} ... G_{C-1} exit_`` for the operators ``ops``
+    (C, M, M) and ``exit_`` (M,), beta after chunk C-1.  Exclusive suffix
+    products, read from one tree of pairwise products (see
+    :func:`boundary_rows`)."""
+    return _exit_pass(_tree(ops), exit_)
+
+
+def boundary_rows(ops, entry, exit_):
+    """Alpha at every chunk's entry and beta at every chunk's exit, in f64,
+    each row summing to 1: ``(entry_rows(ops, entry), exit_rows(ops,
+    exit_))`` from one tree.
+
+    ``ops`` (C, M, M) are the chunks' transfer operators G_c (any scale,
+    any float dtype); ``entry`` (M,) is alpha before chunk 0 and ``exit_``
+    (M,) beta after chunk C-1.  Returns ``(alpha, beta)``, both (C, M):
+    ``alpha[c] ~ entry G_0 ... G_{c-1}`` and ``beta[c] ~ G_{c+1} ... G_{C-1}
+    exit_``.  One tree of pairwise products (node i of a level is the
+    product of nodes 2i and 2i+1 of the level below, an odd last node
+    passing up alone), each divided by its max entry, then one pass down
+    it for each: a left child enters where its parent enters and a right
+    child after its left sibling; a right child exits where its parent
+    exits and a left child before its right sibling.  log2(C) levels of
+    batched products; the levels above ``ops`` hold about C f64 operators
+    in all.  This beta is the textbook one, ``G x``, that K2
+    differentiates; the posterior's backward contracts over the source
+    state and takes :func:`exit_rows` of the operators of ``a^T``
+    (:func:`posterior_long`)."""
+    levels = _tree(ops)
+    return _entry_pass(levels, entry), _exit_pass(levels, exit_)
 
 
 def forward_loglik_long_and_grads(a, bfull, pi, tokens, *, chunk=None):
@@ -299,3 +374,117 @@ def _long_and_grads(operators, k2, a, bfull, pi, tokens, chunk):
     grads[1] += db0
     grads[2] += dpi
     return total, tuple(grads)
+
+
+def posterior_long(a, bfull, pi, tokens, *, chunk=None):
+    """Posterior state probabilities (T, M) of one block, a 1-D token
+    tensor, sequence-parallel: the contract of
+    ``itrails_tpu/hmm/longseq.py:77 posterior_long``, the rows of
+    :func:`posterior_long_pieces` joined."""
+    return torch.cat(list(posterior_long_pieces(a, bfull, pi, tokens,
+                                                chunk=chunk)))
+
+
+def posterior_long_pieces(a, bfull, pi, tokens, *, chunk=None):
+    """The posterior of one block, a 1-D token tensor, as a generator of
+    (n, M) row pieces in column order, one a group of chunks, in the
+    tables' dtype on their device; the pieces joined are
+    :func:`posterior_long`.
+
+    Columns 1..T-1 are cut into chunks of ``chunk`` columns (default
+    POSTERIOR_CHUNK), the last right-padded with PAD.  K5 builds the
+    chunks' forward operators ``G_c = prod (a diag e_k)`` and, on ``a^T``,
+    their backward operators ``K_c = prod (a^T diag e_k)``: the posterior's
+    backward, ``beta_{t-1} = a^T (e_t * beta_t)``, contracts over the
+    source state (``cuda_posterior``), so its exit rows are not those of
+    the G's.  :func:`entry_rows` of the G's gives alpha at every chunk's
+    entry (from column 0's normalized alpha), :func:`exit_rows` of the K's
+    beta at every chunk's exit (from ones).  One K4 call then takes every
+    chunk as a window of ``chunk + 1`` columns, window c being block
+    columns ``c chunk .. (c + 1) chunk``, entered through its entry row in
+    place of column 0 (whose token it does not read) and left through its
+    exit row; column 0 of window c > 0 repeats window c-1's last column and
+    is dropped, and the last window is cut to the block's length.  The
+    rows' scales cancel in gamma's normalization, so the operators' log
+    scales are not used.
+
+    The chunks are taken in groups whose two directions' operators and
+    their f64 trees fit OPERATOR_BUDGET_BYTES and whose K4 store
+    (``cuda_posterior.store_row_bytes`` a column of a window) fits
+    ``cuda_posterior.POSTERIOR_BUDGET_BYTES``.  Above one group, a first
+    pass keeps each group's forward and backward products (K5, then a fold
+    in f64), the groups' entry and exit rows come from those, and each
+    group's operators are built again for its rows and its K4 call; the
+    device then holds one group's operators, trees and store, whatever the
+    block's length.
+
+    On the card K5 and K4 run in the tables' dtype (contiguous float32 or
+    float64 tables, int32 tokens), with the boundary rows made in f64 and
+    cast to it; on the CPU their plain versions run."""
+    return _posterior_pieces(cuda_longseq.chunk_operators_fused,
+                             cuda_posterior.posterior_fused, a, bfull, pi,
+                             tokens, POSTERIOR_CHUNK if chunk is None else chunk)
+
+
+def posterior_long_plain(a, bfull, pi, tokens, *, chunk=None):
+    """:func:`posterior_long` with the plain versions of K5 (the contract
+    ``chunk_operators``) and K4 on the tables' device and dtype: the
+    reference the route is held against on the card."""
+    return torch.cat(list(_posterior_pieces(
+        _plain_operators, cuda_posterior.posterior_fused_plain, a, bfull, pi,
+        tokens, POSTERIOR_CHUNK if chunk is None else chunk)))
+
+
+def posterior_ranges(t_len, m, device, dtype, chunk=None):
+    """``(lo, hi)`` chunk ranges of the groups in which
+    :func:`posterior_long_pieces` takes a ``t_len``-column block at ``m``
+    states, on ``device`` with tables of ``dtype``: their two directions'
+    operators and f64 trees fit OPERATOR_BUDGET_BYTES and their K4 store
+    fits ``cuda_posterior.POSTERIOR_BUDGET_BYTES``."""
+    chunk = POSTERIOR_CHUNK if chunk is None else chunk
+    size = torch.empty((), dtype=dtype).element_size()
+    row_bytes = cuda_posterior.store_row_bytes(m, device, dtype)
+    by_operators = OPERATOR_BUDGET_BYTES // (2 * m * m * (size + 8))
+    by_store = cuda_posterior.POSTERIOR_BUDGET_BYTES // ((chunk + 1) * row_bytes)
+    return _ranges(t_len, chunk, min(by_operators, by_store))
+
+
+def _posterior_pieces(operators, k4, a, bfull, pi, tokens, chunk):
+    t_len = tokens.shape[0]
+    if t_len == 1:
+        yield k4(a, bfull, pi, tokens[None])[0][:, 0, :]
+        return
+    m = a.shape[0]
+    a_t = a.T.contiguous()
+    _, al0, _ = cuda_fwd.column0(bfull, pi, tokens[:1])
+    groups = posterior_ranges(t_len, m, a.device, a.dtype, chunk)
+    # each group's entry and exit rows, from the groups' products
+    entries = [al0[0].double()]
+    exits = [torch.ones((m,), dtype=torch.float64, device=a.device)]
+    for lo, hi in groups[:-1]:
+        p = _group_product(operators, a, bfull,
+                           chunk_matrix(tokens, lo, hi, chunk))[0]
+        entries.append(_unit(entries[-1] @ p))
+    for lo, hi in groups[:0:-1]:
+        q = _group_product(operators, a_t, bfull,
+                           chunk_matrix(tokens, lo, hi, chunk))[0]
+        exits.insert(0, _unit(q @ exits[0]))
+    for (lo, hi), entry, exit_ in zip(groups, entries, exits):
+        stream = chunk_matrix(tokens, lo, hi, chunk)
+        alpha = entry_rows(operators(a, bfull, stream)[0], entry)
+        beta = exit_rows(operators(a_t, bfull, stream)[0], exit_)
+        first = tokens[lo * chunk:hi * chunk:chunk, None]
+        post, _ = k4(a, bfull, pi, torch.cat([first, stream], dim=1),
+                     alpha0=alpha.to(a.dtype), beta_exit=beta.to(a.dtype))
+        del alpha, beta
+        # block columns lo chunk + 1 .. min(hi chunk, T - 1), and column 0
+        # in the first group
+        head = int(lo == 0)
+        n = min(hi * chunk, t_len - 1) - lo * chunk
+        rows = torch.empty((head + (hi - lo) * chunk, m), dtype=post.dtype,
+                           device=post.device)
+        rows[head:].view(hi - lo, chunk, m).copy_(post[1:].transpose(0, 1))
+        if head:
+            rows[0] = post[0, 0]
+        del post  # the group's store goes before the next group runs
+        yield rows[:head + n]

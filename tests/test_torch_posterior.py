@@ -3,8 +3,9 @@
 log-space scan (``itrails_tpu.hmm.decoders.posterior``), its Pallas kernel
 in interpret mode, ``longseq.posterior_long`` and the original iTRAILS
 posteriors (goldens/hmm_*.npz); the segmented route against one pass, bit
-for bit; the posterior CSV writer against the JAX package's, byte for byte;
-and, on the card, K4 against its plain version."""
+for bit (the CLI's long-block route: tests/test_torch_posterior_long.py);
+the posterior CSV writer against the JAX package's, byte for byte; and, on
+the card, K4 against its plain version."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -204,35 +205,27 @@ def test_entry_alpha_and_exit_beta_continue_a_window(dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_segmented_route_matches_one_pass(dtype, monkeypatch):
-    """run_posterior with the long-block threshold and the store budget
-    lowered: the segmented route's pieces come in column order and join into the
-    one-pass rows, bit for bit, and both give the plain version's on the
-    block alone (exactly for a one-window batch; the short blocks share a
-    batch, whose f32 products may round otherwise)."""
-    from itrails_tpu_torch.cli import decode
-    from itrails_tpu_torch.hmm import cuda_posterior, decoders
+    """posterior_segmented with the segment length lowered: each block's
+    pieces come in column order and join into its one-pass rows (a
+    one-window batch), bit for bit, and those are the plain version's on
+    the block alone, exactly."""
+    from itrails_tpu_torch.hmm import decoders
 
     dt = getattr(torch, dtype)
     a, bfull, pi = (torch.tensor(x, dtype=dt) for x in _random_model(27, seed=9))
     rng = np.random.default_rng(10)
     v_lst = [rng.integers(0, 625, size=n).astype(np.int32)
              for n in (40, 700, 1301, 90, 95)]
-    monkeypatch.setattr(decode, "LONG_BLOCK_THRESHOLD", 100)
-    one_pass = list(decode.run_posterior(a, bfull, pi, v_lst))
-    assert [i for i, _ in one_pass] == [0, 1, 2, 3, 4]
-    # one window's store above the budget from 601 columns on
-    monkeypatch.setattr(cuda_posterior, "POSTERIOR_BUDGET_BYTES",
-                        600 * 27 * a.element_size())
+    one_pass = [decoders.posterior_fast(a, bfull, pi, torch.tensor(v)[None, :])
+                [:, 0, :].numpy() for v in v_lst]
     monkeypatch.setattr(decoders, "SEGMENT_COLUMNS", 128)
-    pieces = list(decode.run_posterior(a, bfull, pi, v_lst))
+    pieces = [(i, p.numpy()) for i, v in enumerate(v_lst)
+              for p in decoders.posterior_segmented(a, bfull, pi, torch.tensor(v))]
     assert [i for i, _ in pieces] == [0] + [1] * 6 + [2] * 11 + [3, 4]
     for i, v in enumerate(v_lst):
         seg = np.concatenate([r for j, r in pieces if j == i])
-        np.testing.assert_array_equal(seg, one_pass[i][1])
-        ref = _block_rows(a, bfull, pi, v)
-        exact = len(v) > 100 or dtype == "float64"
-        np.testing.assert_allclose(one_pass[i][1], ref, rtol=0,
-                                   atol=0 if exact else 2e-5)
+        np.testing.assert_array_equal(seg, one_pass[i])
+        np.testing.assert_array_equal(one_pass[i], _block_rows(a, bfull, pi, v))
         assert seg.dtype == getattr(np, dtype) and seg.shape == (len(v), 27)
 
 
