@@ -176,10 +176,8 @@ POST64_ATOL = 1e-10
 # and phase 11's simulated 1e7-column block, windows x columns joined
 LONG_BLOCK = 320_000
 LONG_SIM = (1000, 10_000)
-# phase 11: the chunk lengths of the gradient route that are timed
-GRAD_CHUNKS = (256, 512, 1024)
-# phase 12: the chunk lengths of the posterior route that are timed
-POSTERIOR_CHUNKS = (256, 512, 1024)
+# phases 11 and 12: the chunk lengths of the long-block routes that are timed
+ROUTE_CHUNKS = (256, 512, 1024)
 # phase 2: K5 against its plain version in f64 on the same f32 tables:
 # operators (max entry 1) and log scales, at the tolerance of the port's
 # CPU test against the Pallas operator kernel
@@ -603,7 +601,7 @@ def phase_k2_chunks(card, dev, m_label, n_ab, n_abc, seed, reps):
 
     a, bfull, pi, _ = build_tables(n_ab, n_abc, dev)
     m = a.shape[0]
-    chunk = longseq.GRAD_CHUNK
+    chunk = longseq.ROUTE_CHUNK
     tok = simulated_block(dev, n_ab, n_abc, seed)
     n_chunks = -(-(len(tok) - 1) // chunk)
     stream = longseq.chunk_matrix(tok, 0, n_chunks, chunk)
@@ -916,8 +914,9 @@ def rows_sass(card):
 def phase_k5(card, dev, m_label, n_ab, n_abc, seed, reps):
     """K5 against its plain version in f64 on the same (f32) tables, on the
     card, on the chunks of a 320 kb block simulated from the model, and K5
-    on the f64 tables against the plain version on them; returns the f64
-    record (the optimize CLI's value path at its default).  The plain
+    on the f64 tables against the plain version on them, in CHUNK and in
+    ROUTE_CHUNK columns; returns the f64 record at ROUTE_CHUNK, the shape
+    the posterior path and the gradient route give K5.  The plain
     version on the f64 tables against the f32 ones is read too, without a
     gate: over 1,024 columns of a model whose states persist, the f32
     rounding of the tables alone moves the operators by ~5e-5."""
@@ -978,12 +977,32 @@ def phase_k5(card, dev, m_label, n_ab, n_abc, seed, reps):
     ms64 = cuda_ms(lambda: cuda_longseq.chunk_operators_fused(a, bfull, tok),
                    reps)
     bound64_ms, bound64_by = k5_bound_ms(m, tok, size=8)
-    # the same columns cut into the gradient route's chunks
-    tok_g = tok.reshape(-1, longseq.GRAD_CHUNK)
+    # the shape the long-block routes give K5: a LONG_BLOCK-column block's
+    # columns 1..T-1 in chunks of ROUTE_CHUNK, the last padded; in f64, the
+    # posterior CLI's default, K5 against the contract on the same tables
+    n_g = -(-(LONG_BLOCK - 1) // longseq.ROUTE_CHUNK)
+    tok_g = longseq.chunk_matrix(tok.reshape(-1)[:LONG_BLOCK], 0, n_g,
+                                 longseq.ROUTE_CHUNK)
     ms_g = cuda_ms(lambda: cuda_longseq.chunk_operators_fused(a32, b32, tok_g),
                    reps)
     ms64_g = cuda_ms(lambda: cuda_longseq.chunk_operators_fused(a, bfull, tok_g),
                      reps)
+    ops_g, logz_g = cuda_longseq.chunk_operators_fused(a, bfull, tok_g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ops_gr, logz_gr = cuda_longseq.chunk_operators(a, bfull, tok_g.reshape(-1),
+                                                   longseq.ROUTE_CHUNK)
+    torch.cuda.synchronize()
+    plain_g_ms = 1e3 * (time.perf_counter() - t0)
+    ops_g_err = float((ops_g - ops_gr).abs().max())
+    logz_g_err = float(((logz_g - logz_gr).abs()
+                        / logz_gr.abs().clamp(min=1.0)).max())
+    del ops_g, ops_gr
+    check(ops_g_err <= VALUE64_RTOL and logz_g_err <= VALUE64_RTOL,
+          f"K5 {m_label} f64 C={n_g} L={longseq.ROUTE_CHUNK}: operators off "
+          f"the plain version by {ops_g_err:.3g}, log scales by "
+          f"{logz_g_err:.3g} (gate {VALUE64_RTOL:g})")
+    bound_g_ms, bound_g_by = k5_bound_ms(m, tok_g, size=8)
     # a yardstick, no library_ms: one cuBLAS product of every row of every
     # chunk by a, (C M, M) @ (M, M), times the chunk's columns
     rows32, rows64 = ops.reshape(-1, m), ops.reshape(-1, m).double()
@@ -1013,13 +1032,17 @@ def phase_k5(card, dev, m_label, n_ab, n_abc, seed, reps):
           f"the same f64 tables); K5 f64 {ms64:.4f} ms (mean of {reps}), "
           f"{ms64 / ms:.2f}x f32, f64 bound {bound64_ms:.4f} ms "
           f"({bound64_by}), {bound64_ms / ms64:.1%} of bound; in "
-          f"{tok_g.shape[0]} chunks of {tok_g.shape[1]} {ms64_g:.4f} ms; cuBLAS "
+          f"{tok_g.shape[0]} chunks of {tok_g.shape[1]} (the long-block "
+          f"routes' shape, the record's) {ms64_g:.4f} ms, bound "
+          f"{bound_g_ms:.4f} ms ({bound_g_by}), operators max abs err "
+          f"{ops_g_err:.3g}, log scales max rel err {logz_g_err:.3g} (gate "
+          f"{VALUE64_RTOL:g}), plain f64 {plain_g_ms:.1f} ms; cuBLAS "
           f"yardstick {yard64_ms:.4f} ms; rows kernel {att64['registers']} "
           f"registers, {att64['local_bytes']} local bytes a thread, "
           f"{att64['rows_per_warp']} rows a warp, up to {att64['max_warps']} "
           f"warps a block")
-    return {"max_abs_err": ops64_err, "ms": ms64, "plain_ms": plain_ms,
-            "bound_ms": bound64_ms, "bound_by": bound64_by}
+    return {"max_abs_err": ops_g_err, "ms": ms64_g, "plain_ms": plain_g_ms,
+            "bound_ms": bound_g_ms, "bound_by": bound_g_by}
 
 
 def phase_cli(card, dev, workdir):
@@ -1306,7 +1329,7 @@ def phase_cli_grad(card, dev, workdir, cli):
           f"block(s)")
     chunk_calls = [shape for shape, with_rows in shapes if with_rows]
     check(len(chunk_calls) == n_eval * n_long
-          and all(t == longseq.GRAD_CHUNK + 1 for _, t in chunk_calls)
+          and all(t == longseq.ROUTE_CHUNK + 1 for _, t in chunk_calls)
           and all(t < LONG_BLOCK for (_, t), _ in shapes),
           f"K2 walked a long block as one window, or not as chunks: {shapes}")
     rel = abs(rows[0, -2] - cli["ref"]) / abs(cli["ref"])
@@ -1730,7 +1753,7 @@ def phase_posterior_cli(card, dev, workdir, cli, best_yaml):
     check(k5_launches == 2 * len(route),
           f"K5 launched {k5_launches} times for {len(route)} route group(s): "
           "two a group, on a and on a^T")
-    chunk_calls = [w for w, t in shapes if t == longseq.POSTERIOR_CHUNK + 1]
+    chunk_calls = [w for w, t in shapes if t == longseq.ROUTE_CHUNK + 1]
     check(sum(chunk_calls) == route[-1][1]
           and all(t <= decode.LONG_BLOCK_THRESHOLD for _, t in shapes),
           f"K4 walked a block above {decode.LONG_BLOCK_THRESHOLD} columns as one "
@@ -1759,7 +1782,7 @@ def phase_posterior_cli(card, dev, workdir, cli, best_yaml):
                                                                     tok)), 1)
             per_batch.append(f"the long block {len(tok)} columns: the route ("
                              f"{len(route)} group(s) of (C, "
-                             f"{longseq.POSTERIOR_CHUNK + 1}) windows) {ms:.2f} ms, "
+                             f"{longseq.ROUTE_CHUNK + 1}) windows) {ms:.2f} ms, "
                              f"max abs err {errs[-1]:.3g}")
             continue
         tok, _, _ = windows.pack_windows([v_lst[i] for i in group])
@@ -1839,7 +1862,7 @@ def phase_posterior_groups(card, dev, cli, best_yaml, route_rows):
     (block,) = [v for v in cli["v_lst"] if len(v) > decode.LONG_BLOCK_THRESHOLD]
     tok = torch.as_tensor(np.asarray(block, np.int32), device=dev)
     m = a.shape[0]
-    chunk = longseq.POSTERIOR_CHUNK
+    chunk = longseq.ROUTE_CHUNK
     per_group = -(-(-(-(len(block) - 1) // chunk)) // 5)
     saved = longseq.OPERATOR_BUDGET_BYTES, cuda_posterior.POSTERIOR_BUDGET_BYTES
     parts = []
@@ -2010,7 +2033,7 @@ def phase_long_grad(card, dev, cli):
     peak device memory; on the 3x3 320 kb block, K2's one-window walk timed
     beside it.  Then the chunk length: on the 320 kb blocks, the route (its
     second call) and K5, the boundary rows and K2 timed apart at each of
-    GRAD_CHUNKS."""
+    ROUTE_CHUNKS."""
     import torch
 
     from itrails_tpu_torch.data.tokens import PAD_TOKEN
@@ -2052,7 +2075,7 @@ def phase_long_grad(card, dev, cli):
         errs64, _, _ = grad_errors(grads, g64)
         bound_ms, bound_by = k2_bound_ms(m, tok[None])
         line = (f"{label} (M={m}, {len(tok)} columns, chunk "
-                f"{longseq.GRAD_CHUNK}): route {ms:.3f} / {ms_again:.3f} ms "
+                f"{longseq.ROUTE_CHUNK}): route {ms:.3f} / {ms_again:.3f} ms "
                 f"(first / second call; K2's function's bound {bound_ms:.4f} "
                 f"ms, {bound_by}), loglik {float(ll):.6f} rel err "
                 f"{rel:.3g}, {grad_note(errs, medians)} (against the f64 "
@@ -2072,7 +2095,7 @@ def phase_long_grad(card, dev, cli):
         if len(tok) != LONG_BLOCK:
             continue
         _, al0, _ = cuda_fwd.column0(tables32[1], tables32[2], tok[:1])
-        for chunk in GRAD_CHUNKS:
+        for chunk in ROUTE_CHUNKS:
             def route():
                 return longseq.forward_loglik_long_and_grads(*tables32, tok,
                                                              chunk=chunk)
@@ -2118,6 +2141,34 @@ def phase_long_grad(card, dev, cli):
           + "; ".join(sweep))
 
 
+def mixed_route(k5_tables, k4_tables, tok):
+    """A long block's posterior rows (T, M) through the route's stages in
+    one group at ROUTE_CHUNK, with K5 on ``k5_tables`` (a, bfull) and K4 on
+    ``k4_tables`` (a, bfull, pi), whose dtypes may differ: phase 12 splits
+    the route's f32 error with it."""
+    import torch
+
+    from itrails_tpu_torch.hmm import cuda_fwd, cuda_longseq, cuda_posterior, longseq
+
+    a5, b5 = k5_tables
+    a, bfull, pi = k4_tables
+    chunk, m = longseq.ROUTE_CHUNK, a.shape[0]
+    n_chunks = -(-(len(tok) - 1) // chunk)
+    stream = longseq.chunk_matrix(tok, 0, n_chunks, chunk)
+    _, al0, _ = cuda_fwd.column0(bfull, pi, tok[:1])
+    alpha = longseq.entry_rows(
+        cuda_longseq.chunk_operators_fused(a5, b5, stream)[0], al0[0])
+    beta = longseq.exit_rows(
+        cuda_longseq.chunk_operators_fused(a5.T.contiguous(), b5, stream)[0],
+        torch.ones((m,), dtype=torch.float64, device=a.device))
+    windows = torch.cat([tok[0:n_chunks * chunk:chunk, None], stream], dim=1)
+    post, _ = cuda_posterior.posterior_fused(
+        a, bfull, pi, windows, alpha0=alpha.to(a.dtype),
+        beta_exit=beta.to(a.dtype))
+    return torch.cat([post[0, :1], post[1:].transpose(0, 1).reshape(-1, m)]
+                     )[:len(tok)]
+
+
 def phase_long_posterior(card, dev, cli):
     """A long block's posterior through the sequence-parallel route (K5 on
     ``a`` and on ``a^T``, the entry and exit rows, one K4 call over the
@@ -2126,9 +2177,12 @@ def phase_long_posterior(card, dev, cli):
     block as one window on the card (and, at 3x3, against the route's plain
     version on the card) at POST64_ATOL, with the route's milliseconds and
     peak device memory, and on f32 tables against the f64 plain version at
-    POST_ATOL; the route's stages (K5 on a, K5 on a^T, the boundary rows, K4
+    POST_ATOL (3x3), the f32 error split into the tables' rounding, the
+    route's own part (K5 in f32 and the boundary rows; gated at POST_ATOL
+    against one-window f64 K4 on the same f32 tables) and K4's f32
+    arithmetic on the chunk windows (printed); the route's stages (K5 on a, K5 on a^T, the boundary rows, K4
     on the chunk windows, the rows to the host) timed apart at each of
-    POSTERIOR_CHUNKS; then 1e7 simulated columns at 3x3 against
+    ROUTE_CHUNKS; then 1e7 simulated columns at 3x3 against
     ``decoders.posterior_segmented`` on the card, segment by segment, at
     POST64_ATOL."""
     import torch
@@ -2172,12 +2226,29 @@ def phase_long_posterior(card, dev, cli):
             del plain
         else:
             err32 = float((got32.double() - one).abs().max())
-        del route, got32
+        del route
+        # the f32 error split: the tables' own rounding (one-window f64 K4 on
+        # the f32 tables upcast, against the f64 tables); then on those same
+        # tables, against one-window f64 K4: the route in f32, its own part
+        # (K5 in f32 and the boundary rows, K4 in f64), K4's f32 arithmetic
+        # on the chunk windows (K5 in f64, K4 in f32) and on one window
+        up = [x.double() for x in f32]
+        one_up = cuda_posterior.posterior_fused(*up, tok[None])[0][:, 0, :]
+        split32 = [float((one_up - one).abs().max())] + [
+            float((x.double() - one_up).abs().max()) for x in (
+                got32, mixed_route(f32[:2], up, tok),
+                mixed_route(up[:2], f32, tok),
+                cuda_posterior.posterior_fused(*f32, tok[None])[0][:, 0, :])]
+        del up, one_up, got32
+        check(split32[2] <= POST_ATOL,
+              f"{label}: the route's own f32 part (K5 in f32, K4 in f64) off "
+              f"one-window f64 K4 on the same tables by {split32[2]:.3g} (atol "
+              f"{POST_ATOL:g})")
         # its memory in the allocator's cache, as a stream of blocks finds it
         ms_again = timed(lambda: longseq.posterior_long(*tables, tok))[1]
         bound_ms, bound_by = k4_bound_ms(m, tok[None], size=8)
         line = (f"{label} (M={m}, {len(tok)} columns, chunk "
-                f"{longseq.POSTERIOR_CHUNK}): route {ms:.3f} / {ms_again:.3f} ms "
+                f"{longseq.ROUTE_CHUNK}): route {ms:.3f} / {ms_again:.3f} ms "
                 f"(first call / a later one; K4's function's bound {bound_ms:.4f} ms, "
                 f"{bound_by}), peak device memory {peak} bytes; one-window K4 "
                 f"{one_ms:.2f} ms ({one_ms / ms_again:.1f}x the route), the route "
@@ -2192,12 +2263,19 @@ def phase_long_posterior(card, dev, cli):
                      f"{err32:.3g} of the f64 plain version (atol {POST_ATOL:g})")
         else:
             line += (f"; on f32 tables {ms32:.3f} ms, {err32:.3g} off one-window "
-                     "K4 in f64 (no gate)")
+                     "K4 on the f64 tables (no gate)")
+        line += (f"; f32 split: the tables' rounding {split32[0]:.3g}; on the "
+                 f"f32 tables against one-window f64 K4, the route in f32 "
+                 f"{split32[1]:.3g}, its own part (K5 in f32, K4 in f64) "
+                 f"{split32[2]:.3g} (atol {POST_ATOL:g}), K4's f32 arithmetic "
+                 f"on the chunk windows (K5 in f64) {split32[3]:.3g} and on one "
+                 f"window {split32[4]:.3g} (no gate, as phase 2's K4 on "
+                 f"simulated runs)")
         parts.append(line)
 
         _, al0, _ = cuda_fwd.column0(bfull, pi, tok[:1])
         ones = torch.ones_like(al0[0])
-        for chunk in POSTERIOR_CHUNKS:
+        for chunk in ROUTE_CHUNKS:
             got = longseq.posterior_long(*tables, tok, chunk=chunk)
             err_c = float((got - one).abs().max())
             check(err_c <= POST64_ATOL, f"{label} chunk {chunk}: off one-window "
@@ -2331,7 +2409,8 @@ def run_phases(card, dev, t_start):
     print(f"{card} | all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     # each record at the genome-scale 3x3 shape of phase 2 (K1, K4 and K5
-    # in f64, the CLIs' default; K5 on the 313 chunks of a 320 kb block);
+    # in f64, the CLIs' default; K5 on the 625 chunks of ROUTE_CHUNK columns
+    # of a 320 kb block, the posterior path's shape);
     # launches from the CLI run of its own path (K1: phase 3, K2: phase 4,
     # the main path, where each K2 call launches its two kernels, K3: phase
     # 6, two kernels a call, K4 and K5: phase 8, the posterior path, K4 two

@@ -47,7 +47,7 @@ from itrails_tpu_torch.hmm import (cuda_fwd, cuda_grad, cuda_longseq,
                                    cuda_posterior)
 from itrails_tpu_torch.hmm.cuda_longseq import chunk_operators
 
-__all__ = ["CHUNK", "GRAD_CHUNK", "OPERATOR_BUDGET_BYTES", "POSTERIOR_CHUNK",
+__all__ = ["CHUNK", "OPERATOR_BUDGET_BYTES", "ROUTE_CHUNK",
            "boundary_rows", "chunk_matrix", "chunk_operators", "entry_rows",
            "exit_rows", "forward_loglik_long", "forward_loglik_long_and_grads",
            "forward_loglik_long_and_grads_plain", "forward_loglik_long_plain",
@@ -57,29 +57,16 @@ __all__ = ["CHUNK", "GRAD_CHUNK", "OPERATOR_BUDGET_BYTES", "POSTERIOR_CHUNK",
 # Columns of one chunk of the value path: the JAX engine's
 # (itrails_tpu/optim/optimizer.py:66).
 CHUNK = 1024
-# Columns of one chunk of the gradient route, K5's chunk and K2's window.
-# chip_smoke.py's phase 11 times the route on a 320 kb block at 256, 512
-# and 1,024 columns; in two runs on an NVIDIA H100 80GB HBM3 at 700 W
-# (PERF.md): 94.5 / 95.2 / 113.0 and 94.4 / 95.9 / 113.1 ms at M = 133,
-# where K5 fills the card's SMs better with more chunks, and 6.94 / 5.81 /
-# 7.70 and 8.00 / 7.87 / 7.96 ms at M = 27, within the runs' spread (the
-# host's launches of the boundary rows' small products).
-GRAD_CHUNK = 512
+# Columns of one chunk of the long-block routes, the gradient's and the
+# posterior's: K5's chunk, and K2's and K4's window less its entry column
+# (chip_smoke.py's phases 11 and 12 time both routes at 256, 512 and 1,024;
+# PERF.md).
+ROUTE_CHUNK = 512
 # Bytes of the (C_g, M, M) operators of one group of chunks, built and folded
 # before the next group is built: 368,224 chunks (377 M columns) at M = 27,
 # 15,175 chunks (15.5 M columns) at M = 133 in float32, half as many in
 # float64.
 OPERATOR_BUDGET_BYTES = 1 << 30
-# Columns of one chunk of the posterior route, K5's chunk and K4's window
-# less its entry column.  chip_smoke.py's phase 12 times the route in f64
-# on a 320 kb block at 256, 512 and 1,024 columns; in two runs on an
-# NVIDIA H100 80GB HBM3 at 700 W (PERF.md): 11.70 / 11.64 / 12.08 and
-# 5.81 / 5.64 / 6.07 ms at M = 27 (the boundary rows' small host-launched
-# ops take 3.6-8.4 ms of each, with the host's speed) and 89.2 / 88.1 /
-# 94.5 and 89.2 / 87.9 / 94.4 ms at M = 133, where K4 on 1,250 windows of
-# 257 columns takes as long as on 625 of 513 (7.30-7.35 ms) and on 313 of
-# 1,025 twice that.
-POSTERIOR_CHUNK = 512
 
 
 def _normalize_(g):
@@ -296,7 +283,7 @@ def forward_loglik_long_and_grads(a, bfull, pi, tokens, *, chunk=None):
     (``itrails_tpu/hmm/longseq.py:206``).
 
     Columns 1..T-1 are cut into chunks of ``chunk`` columns (default
-    GRAD_CHUNK), the last right-padded with PAD.  K5 builds the chunks'
+    ROUTE_CHUNK), the last right-padded with PAD.  K5 builds the chunks'
     operators, :func:`boundary_rows` reads alpha at each chunk's entry
     (from ``alpha_0 = pi * e(tok_0)``) and beta at its exit (from ones),
     and one K2 call takes every chunk as a window entered and left through
@@ -321,7 +308,7 @@ def forward_loglik_long_and_grads(a, bfull, pi, tokens, *, chunk=None):
     plain versions run in the dtype of ``a``."""
     return _long_and_grads(cuda_longseq.chunk_operators_fused,
                            cuda_grad.loglik_and_grads_fused, a, bfull, pi,
-                           tokens, GRAD_CHUNK if chunk is None else chunk)
+                           tokens, ROUTE_CHUNK if chunk is None else chunk)
 
 
 def forward_loglik_long_and_grads_plain(a, bfull, pi, tokens, *, chunk=None):
@@ -330,7 +317,7 @@ def forward_loglik_long_and_grads_plain(a, bfull, pi, tokens, *, chunk=None):
     against on the card."""
     return _long_and_grads(_plain_operators, cuda_grad.loglik_and_grads_plain,
                            a, bfull, pi, tokens,
-                           GRAD_CHUNK if chunk is None else chunk)
+                           ROUTE_CHUNK if chunk is None else chunk)
 
 
 def _long_and_grads(operators, k2, a, bfull, pi, tokens, chunk):
@@ -392,7 +379,7 @@ def posterior_long_pieces(a, bfull, pi, tokens, *, chunk=None):
     :func:`posterior_long`.
 
     Columns 1..T-1 are cut into chunks of ``chunk`` columns (default
-    POSTERIOR_CHUNK), the last right-padded with PAD.  K5 builds the
+    ROUTE_CHUNK), the last right-padded with PAD.  K5 builds the
     chunks' forward operators ``G_c = prod (a diag e_k)`` and, on ``a^T``,
     their backward operators ``K_c = prod (a^T diag e_k)``: the posterior's
     backward, ``beta_{t-1} = a^T (e_t * beta_t)``, contracts over the
@@ -423,7 +410,7 @@ def posterior_long_pieces(a, bfull, pi, tokens, *, chunk=None):
     cast to it; on the CPU their plain versions run."""
     return _posterior_pieces(cuda_longseq.chunk_operators_fused,
                              cuda_posterior.posterior_fused, a, bfull, pi,
-                             tokens, POSTERIOR_CHUNK if chunk is None else chunk)
+                             tokens, ROUTE_CHUNK if chunk is None else chunk)
 
 
 def posterior_long_plain(a, bfull, pi, tokens, *, chunk=None):
@@ -432,7 +419,7 @@ def posterior_long_plain(a, bfull, pi, tokens, *, chunk=None):
     reference the route is held against on the card."""
     return torch.cat(list(_posterior_pieces(
         _plain_operators, cuda_posterior.posterior_fused_plain, a, bfull, pi,
-        tokens, POSTERIOR_CHUNK if chunk is None else chunk)))
+        tokens, ROUTE_CHUNK if chunk is None else chunk)))
 
 
 def posterior_ranges(t_len, m, device, dtype, chunk=None):
@@ -441,7 +428,7 @@ def posterior_ranges(t_len, m, device, dtype, chunk=None):
     states, on ``device`` with tables of ``dtype``: their two directions'
     operators and f64 trees fit OPERATOR_BUDGET_BYTES and their K4 store
     fits ``cuda_posterior.POSTERIOR_BUDGET_BYTES``."""
-    chunk = POSTERIOR_CHUNK if chunk is None else chunk
+    chunk = ROUTE_CHUNK if chunk is None else chunk
     size = torch.empty((), dtype=dtype).element_size()
     row_bytes = cuda_posterior.store_row_bytes(m, device, dtype)
     by_operators = OPERATOR_BUDGET_BYTES // (2 * m * m * (size + 8))

@@ -292,7 +292,7 @@ def test_long_block_gradient_runs_through_the_chunk_route(monkeypatch):
     assert split.n_long == 1 and split.long_blocks[0].shape == (700,)
     assert all(tok.shape[1] < 700 for tok in split.batches)
     whole = LoglikEngine(v_lst, 1, 2, device="cpu")
-    monkeypatch.setattr(longseq, "GRAD_CHUNK", 64)
+    monkeypatch.setattr(longseq, "ROUTE_CHUNK", 64)
     seen = {"K2": [], "K5": []}
     k2, k5 = cuda_grad.loglik_and_grads_fused, cuda_longseq.chunk_operators_fused
 
@@ -330,7 +330,7 @@ def test_engine_gradient_with_a_long_block_matches_jax_engine(monkeypatch):
     v_lst, n_ab, n_abc, names, x0, fixed = _grad_case("1x2")
     v_lst = v_lst + [long_block]
     case = frozenset(["t_1"])
-    monkeypatch.setattr(longseq, "GRAD_CHUNK", 64)
+    monkeypatch.setattr(longseq, "ROUTE_CHUNK", 64)
     engine = LoglikEngine(v_lst, n_ab, n_abc, device="cpu", long_threshold=500)
     assert engine.n_long == 1
     ll, g = engine.loglik_and_grad_fn(names, fixed, case, resolve_times)(x0)

@@ -237,7 +237,7 @@ def test_run_posterior_sends_long_blocks_through_the_route(monkeypatch):
     tables = _torch(_model("3x3"))
     v_lst = [_block(n, seed=n) for n in (40, 700, 1301, 90, 95, 2)]
     monkeypatch.setattr(decode, "LONG_BLOCK_THRESHOLD", 100)
-    monkeypatch.setattr(longseq, "POSTERIOR_CHUNK", 64)
+    monkeypatch.setattr(longseq, "ROUTE_CHUNK", 64)
     monkeypatch.setattr(cuda_posterior, "POSTERIOR_BUDGET_BYTES", 3 * 65 * 27 * 8)
     route = []
     pieces_of = longseq.posterior_long_pieces
