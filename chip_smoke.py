@@ -10,7 +10,8 @@ power limit):
 
 1. build: compile kernels K1 (``itrails_tpu_torch/csrc/fwd.cu``), K2
    (``csrc/grad.cu``), K3 (``csrc/viterbi.cu``), K4
-   (``csrc/posterior.cu``) and K5 (``csrc/operators.cu``) with nvcc for
+   (``csrc/posterior.cu``), K5 (``csrc/operators.cu``) and K6 with its
+   entry scan (``csrc/maxplus.cu``) with nvcc for
    sm_90a, all at once, and print their registers, shared memory and
    spills; the SASS of the row kernels of K1 and K5 (``csrc/rows.cuh``):
    DMMA in every f64 instantiation, none in an f32 one, one block barrier
@@ -44,7 +45,11 @@ power limit):
    then K2 on the chunk windows of a simulated 320 kb block at each model,
    entered and left through boundary rows, against its plain version in
    f64 with the same rows: loglik rtol 1e-6, every gradient entry rtol
-   2e-3;
+   2e-3; then the Viterbi route's kernels on the 625 chunks of 512 columns
+   of a simulated 320 kb block at each model, each against its plain
+   version on the card, bit for bit: K6's max-plus operators and their
+   offsets, the entry scan's omegas, and K3's forward over the chunk
+   windows, its entry map, the chain and its backtrack;
 3. the value-only path: ``itrails_tpu_torch.cli.optimize.main --no-grad``
    (Nelder-Mead) at 3x3 on a MAF simulated from the 3x3 model (1.32 M
    columns: 100 blocks of 10 kb and one 320 kb block), at its default
@@ -71,13 +76,17 @@ power limit):
    value, and into build, decode (K2) and build backward for the gradient;
 6. the Viterbi path: ``itrails_tpu_torch.cli.viterbi.main`` at 3x3 on
    phase 3's MAF with phase 4's ``.best_model.yaml`` as its config (so
-   optimize -> decode end to end), with K3's counters reset just before
-   and read just after; its ``viterbi.csv`` must be byte-identical to the
+   optimize -> decode end to end), with K3's and K6's counters reset just
+   before and read just after (the short blocks one K3 call of two
+   launches; the 320 kb block through the route ``longseq.viterbi_long``,
+   one launch each of K6, the scan, and K3's forward, entry map, chain and
+   backtrack, and no one-window K3 call); its ``viterbi.csv`` must be byte-identical to the
    one ``--device cpu --precision float32`` (K3's plain version) writes,
    the 320 kb block included, and the columns where it differs from the
    ``--precision float64`` CPU path are counted, with their f64 margin;
-7. the segmented route: the 320 kb block decoded on the card in 65,536-
-   column segments (the threshold lowered) must equal its one-pass path;
+7. the segmented route, off the CLI's path and the long-block routes'
+   reference: ``decoders.viterbi_segmented`` on the 320 kb block in
+   65,536-column segments must equal its one-pass path;
 8. the posterior path: ``itrails_tpu_torch.cli.posterior.main`` at 3x3 on
    phase 3's MAF with phase 4's ``.best_model.yaml``, at its default
    ``--precision float64`` (K4 and K5 in f64), with K4's and K5's counters
@@ -120,7 +129,19 @@ power limit):
    a, K5 on a^T, the boundary rows, K4 on the chunk windows, the rows to the
    host) timed apart at chunks of 256, 512 and 1,024 columns; and 1e7
    columns simulated from the 3x3 model against
-   ``decoders.posterior_segmented`` on the card at atol 1e-10.
+   ``decoders.posterior_segmented`` on the card at atol 1e-10; K4's f32
+   arithmetic gated at the card's earlier readings on the 7x7 block;
+13. the long-block Viterbi path: the route (K6, the entry scan, K3's
+   forward over the chunk windows, its entry map, the chain, its
+   backtrack) on f32 tables on phase 3's 320 kb block, the same block on
+   the 3x3 model with two exchangeable states, and a 320 kb block
+   simulated from the 7x7 model, against one-window K3 on the card (exact
+   at 3x3, ties included; at 7x7 exact, or every differing run's f64
+   score margin printed and below 1e-4 nats) and, at 3x3, the route's
+   plain version on the card (exact), with its milliseconds and peak
+   device memory, its stages timed apart; and 1e7 columns simulated from
+   the 3x3 model against ``decoders.viterbi_segmented`` on the card,
+   exactly.
 
 Any failure exits non-zero.  The last two lines are the kernels' JSON
 record and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -162,10 +183,9 @@ GENOME = (4096, 8192)
 GRAD_RTOL = 2e-3
 # phase 2: K3 on a 3x3 model with two exchangeable states, windows x columns
 TIE_SHAPE = (512, 2048)
-# phases 7 and 9: the segment threshold and segment length the 320 kb block
-# gets (phase 7's Viterbi; phase 9's posterior_segmented, the route's
-# reference, takes the segment length)
-SEGMENTS = (262_145, 65_536)
+# phases 7 and 9: the segment length the 320 kb block gets in
+# viterbi_segmented and posterior_segmented
+SEGMENT_COLS = 65_536
 # phase 2: K4 against its f64 plain version, per non-PAD entry, as
 # tests/test_pallas_fwd.py:78 holds the TPU kernel against the scan
 POST_ATOL = 2e-5
@@ -194,6 +214,10 @@ VALUE64_RTOL = 1e-10
 FD_ATOL = 1e-6
 # phases 10 and 11: each route's long-block value against the f64 plain one
 LONG_RTOL = 1e-6
+# phase 13: a path of the Viterbi route that departs from one-window K3
+# must lose or win by less than this many nats (f64 score of each run of
+# differing columns)
+VITERBI_MARGIN = 1e-4
 # phase 2: K4's f32 error as one state's runs grow: the recombination rates
 # (START's r scaled) and the windows x columns simulated from each model
 RUN_RATES = (1.0, 0.1, 0.01)
@@ -345,12 +369,13 @@ def k4_bound_ms(m, tokens, size=4):
     each non-PAD column's token read (4) and its posterior row written
     (``size``*M), and the tables read once.  The alpha store (written by
     the forward, read back and overwritten by the reverse sweep) is a cost
-    of K4's design and is not counted.  ``size`` 8 is K4 in f64, at the f64
-    peak."""
+    of K4's design and is not counted.  The products run in f64 in both of
+    K4's instantiations, at the f64 peak; the rest at the peak of the
+    tables' type, ``size`` 4 (f32) or 8 (f64)."""
     steps = int((tokens >= 0).sum())
-    ops = steps * (4 * m * m + 9 * m)
     nbytes = steps * (4 + size * m) + size * (m * m + 625 * m + m)
-    by_ops = ops / (PEAK_F32_FLOPS if size == 4 else PEAK_F64_FLOPS)
+    by_ops = (steps * 4 * m * m / PEAK_F64_FLOPS + steps * 9 * m
+              / (PEAK_F32_FLOPS if size == 4 else PEAK_F64_FLOPS))
     by_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes
                                          else "bytes")
@@ -367,6 +392,36 @@ def k5_bound_ms(m, tokens, size=4):
     ops = steps * (2 * m ** 3 + 2 * m * m)
     nbytes = 4 * c * length + c * (size * m * m + 8)
     by_ops = ops / (PEAK_F32_FLOPS if size == 4 else PEAK_F64_FLOPS)
+    by_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes
+                                         else "bytes")
+
+
+def k6_bound_ms(m, tokens):
+    """Least time of K6's function on these inputs: per non-PAD column of a
+    chunk, an add and a max for each (row, source, destination), 2*M^3, and
+    3*M^2 for each row's emission add, max and rescale, at the f32 peak
+    (max-plus has no tensor-core path); bytes: 4 a column of tokens in,
+    each chunk's operator (4*M^2) and offsets (8*M) out, the tables read
+    once."""
+    c, length = tokens.shape
+    steps = int((tokens >= 0).sum())
+    ops = steps * (2 * m ** 3 + 3 * m * m)
+    nbytes = 4 * c * length + c * (4 * m * m + 8 * m) + 4 * (m * m + 625 * m)
+    by_ops = ops / PEAK_F32_FLOPS
+    by_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes
+                                         else "bytes")
+
+
+def scan_bound_ms(m, c):
+    """Least time of the entry scan's function on C chunks: per chunk an
+    add and a max for each (i, j), 2*M^2, and 3*M for the offsets' add, the
+    max and the rescale, in f64 (at PEAK_F64_FLOPS); bytes: each chunk's
+    operator (4*M^2) and offsets (8*M) in, its entry (4*M) out."""
+    ops = c * (2 * m * m + 3 * m)
+    nbytes = c * (4 * m * m + 12 * m)
+    by_ops = ops / PEAK_F64_FLOPS
     by_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes
                                          else "bytes")
@@ -418,12 +473,13 @@ def phase_build(card):
     from concurrent.futures import ThreadPoolExecutor
 
     from itrails_tpu_torch.hmm import (_build, cuda_fwd, cuda_grad,
-                                       cuda_longseq, cuda_posterior,
-                                       cuda_viterbi)
+                                       cuda_longseq, cuda_maxplus,
+                                       cuda_posterior, cuda_viterbi)
 
     t0 = time.perf_counter()
     kernels = (("K1", cuda_fwd), ("K2", cuda_grad), ("K3", cuda_viterbi),
-               ("K4", cuda_posterior), ("K5", cuda_longseq))
+               ("K4", cuda_posterior), ("K5", cuda_longseq),
+               ("K6", cuda_maxplus))
     with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc a source, at once
         jobs = [(name, pool.submit(mod.build)) for name, mod in kernels]
         built = [(name, job.result()) for name, job in jobs]
@@ -663,8 +719,7 @@ def kernel_split(fn, names=("viterbi_forward", "viterbi_backtrack")):
 def phase_k3(card, dev, m_label, n_ab, n_abc, w, t, seed, reps, tie=False):
     """K3 against its f32 plain version on the card, on the same tables:
     exact path equality.  With ``tie``, states 0 and 1 of the model are
-    made exchangeable, so every step holds exact ties.  Returns its
-    record."""
+    made exchangeable, so every step holds exact ties."""
     import torch
 
     from itrails_tpu_torch.hmm import cuda_viterbi
@@ -709,9 +764,10 @@ def phase_k3(card, dev, m_label, n_ab, n_abc, w, t, seed, reps, tie=False):
               f"K3 {m_label}: a tie went to the second of two equal states")
 
     split = kernel_split(lambda: cuda_viterbi.viterbi_fused(a32, b32, p32, tok))
-    before = cuda_viterbi.viterbi_fused.launches
+    k3_parts = (cuda_viterbi.viterbi_forward, cuda_viterbi.viterbi_backtrack)
+    before = sum(f.launches for f in k3_parts)
     ms = cuda_ms(lambda: cuda_viterbi.viterbi_fused(a32, b32, p32, tok), reps)
-    launches = cuda_viterbi.viterbi_fused.launches - before
+    launches = sum(f.launches for f in k3_parts) - before
     check(launches == 2 * (reps + 1) * -(-w // group),
           f"K3 {m_label}: timed calls did not all launch the kernels")
     bound_ms, bound_by = k3_bound_ms(m, tok)
@@ -724,8 +780,6 @@ def phase_k3(card, dev, m_label, n_ab, n_abc, w, t, seed, reps, tie=False):
           f"bytes, plain f32 "
           f"{plain_ms:.1f} ms (one call, host clock, no yardstick), bound "
           f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound")
-    return {"max_abs_err": float((path - ref).abs().max()), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def phase_k4(card, dev, m_label, n_ab, n_abc, w, t, seed, reps):
@@ -1043,6 +1097,110 @@ def phase_k5(card, dev, m_label, n_ab, n_abc, seed, reps):
           f"warps a block")
     return {"max_abs_err": ops_g_err, "ms": ms64_g, "plain_ms": plain_g_ms,
             "bound_ms": bound_g_ms, "bound_by": bound_g_by}
+
+
+def host_ms(fn):
+    """``fn()`` and its milliseconds on the host clock, synchronized before
+    and after: a plain version's host-launched ops."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def phase_viterbi_route_kernels(card, dev, m_label, n_ab, n_abc, seed, reps):
+    """The Viterbi route's kernels on the ROUTE_CHUNK-column chunks of a
+    320 kb block simulated from the model, on f32 tables, each against its
+    plain version on the card, bit for bit: K6's operators and offsets, the
+    entry scan's omegas and carry, K3's forward over the chunk windows (its
+    pointers and final omegas), its entry map, the chain and its backtrack.
+    Returns the records of K6, the scan and K3's four parts together."""
+    import torch
+
+    from itrails_tpu_torch.hmm import cuda_maxplus, cuda_viterbi, longseq
+
+    a, bfull, pi, _ = build_tables(n_ab, n_abc, dev)
+    a32, b32, p32 = (x.float().contiguous() for x in (a, bfull, pi))
+    m = a32.shape[0]
+    tok = simulated_block(dev, n_ab, n_abc, seed)
+    chunk = longseq.ROUTE_CHUNK
+    n_chunks = -(-(len(tok) - 1) // chunk)
+    stream = longseq.chunk_matrix(tok, 0, n_chunks, chunk)
+    windows = torch.cat([tok[0:n_chunks * chunk:chunk, None], stream], dim=1)
+    log_a, log_bt, log_pi = cuda_viterbi.log_tables(a32, b32, p32)
+    omega = cuda_viterbi.column0(log_bt, log_pi, tok[:1])[0].double()
+    what = f"{m_label} M={m} C={n_chunks} L={chunk}"
+
+    g, off = cuda_maxplus.maxplus_operators(log_a, log_bt, stream)
+    (g_ref, off_ref), k6_plain = host_ms(
+        lambda: cuda_maxplus.maxplus_operators_plain(log_a, log_bt, stream))
+    k6_err = max(float((g - g_ref).abs().max()), float((off - off_ref).abs().max()))
+    check(torch.equal(g, g_ref) and torch.equal(off, off_ref),
+          f"K6 {what}: off its plain version by {k6_err:.3g}")
+    del g_ref, off_ref
+    entries, carry = cuda_maxplus.entry_scan(g, off, omega)
+    (ent_ref, carry_ref), scan_plain = host_ms(
+        lambda: cuda_maxplus.entry_scan_plain(g, off, omega))
+    scan_err = float((entries - ent_ref).abs().max())
+    check(torch.equal(entries, ent_ref) and torch.equal(carry, carry_ref),
+          f"the entry scan {what}: off its plain version by {scan_err:.3g}")
+    ptrs, om = cuda_viterbi.viterbi_forward(log_a, log_bt, entries, windows)
+    maps = cuda_viterbi.entry_map(ptrs)
+    states = cuda_viterbi.chain(maps, om[-1])
+    rows = cuda_viterbi.viterbi_backtrack(ptrs, om, states[1:])
+    (p_ref, om_ref), fwd_plain = host_ms(
+        lambda: cuda_viterbi.viterbi_forward_plain(log_a, log_bt, entries,
+                                                   windows))
+    maps_ref, map_plain = host_ms(lambda: cuda_viterbi.entry_map_plain(ptrs))
+    states_ref, chain_plain = host_ms(
+        lambda: cuda_viterbi.chain_plain(maps, om[-1]))
+    rows_ref, back_plain = host_ms(
+        lambda: cuda_viterbi.viterbi_backtrack_plain(ptrs, om, states[1:]))
+    same = {"forward": torch.equal(ptrs, p_ref) and torch.equal(om, om_ref),
+            "entry map": torch.equal(maps, maps_ref),
+            "chain": torch.equal(states, states_ref),
+            "backtrack": torch.equal(rows, rows_ref)}
+    check(all(same.values()), f"K3's parts on the chunk windows {what}: "
+                              f"equal to their plain versions {same}")
+    del p_ref, om_ref
+    k3_err = float((rows - rows_ref).abs().max())
+
+    k6_ms = cuda_ms(lambda: cuda_maxplus.maxplus_operators(log_a, log_bt,
+                                                           stream), reps)
+    scan_ms = cuda_ms(lambda: cuda_maxplus.entry_scan(g, off, omega), reps)
+    fwd_ms = cuda_ms(lambda: cuda_viterbi.viterbi_forward(log_a, log_bt,
+                                                          entries, windows), reps)
+    map_ms = cuda_ms(lambda: cuda_viterbi.entry_map(ptrs), reps)
+    chain_ms = cuda_ms(lambda: cuda_viterbi.chain(maps, om[-1]), reps)
+    back_ms = cuda_ms(lambda: cuda_viterbi.viterbi_backtrack(ptrs, om,
+                                                             states[1:]), reps)
+    k3_ms = fwd_ms + map_ms + chain_ms + back_ms
+    k6_bound, k6_by = k6_bound_ms(m, stream)
+    scan_bound, scan_by = scan_bound_ms(m, n_chunks)
+    k3_bound, k3_by = k3_bound_ms(m, windows)
+    k3_plain = fwd_plain + map_plain + chain_plain + back_plain
+    print(f"{card} | phase 2 Viterbi route kernels {what} (f32 tables, CUDA "
+          f"events, mean of {reps} calls with their wrappers): K6 equal to its "
+          f"plain version (operators and f64 offsets) {k6_ms:.4f} ms, bound "
+          f"{k6_bound:.4f} ms ({k6_by}), {k6_bound / k6_ms:.1%} of bound, plain "
+          f"{k6_plain:.1f} ms; the entry scan equal {scan_ms:.4f} ms, bound "
+          f"{scan_bound:.5f} ms ({scan_by}), plain {scan_plain:.1f} ms; K3 on "
+          f"the ({n_chunks}, {chunk + 1}) chunk windows, each part equal: "
+          f"forward {fwd_ms:.4f} + entry map {map_ms:.4f} + chain "
+          f"{chain_ms:.4f} + backtrack {back_ms:.4f} = {k3_ms:.4f} ms, bound "
+          f"{k3_bound:.4f} ms ({k3_by}), {k3_bound / k3_ms:.1%} of bound, plain "
+          f"{fwd_plain:.1f} + {map_plain:.1f} + {chain_plain:.1f} + "
+          f"{back_plain:.1f} ms (host clock)")
+    return {"k6": {"max_abs_err": k6_err, "ms": k6_ms, "plain_ms": k6_plain,
+                   "bound_ms": k6_bound, "bound_by": k6_by},
+            "scan": {"max_abs_err": scan_err, "ms": scan_ms,
+                     "plain_ms": scan_plain, "bound_ms": scan_bound,
+                     "bound_by": scan_by},
+            "k3": {"max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain,
+                   "bound_ms": k3_bound, "bound_by": k3_by}}
 
 
 def phase_cli(card, dev, workdir):
@@ -1486,32 +1644,49 @@ def path_log_score(log_a, log_bt, log_pi, tokens, path):
     return score + float(log_a[path[:-1], path[1:]][real[1:]].sum())
 
 
+def route_counters():
+    """The launch counters of the Viterbi route's kernels, by name: K6 and
+    its entry scan, then K3's four parts."""
+    from itrails_tpu_torch.hmm import cuda_maxplus, cuda_viterbi
+
+    return {"K6": cuda_maxplus.maxplus_operators,
+            "scan": cuda_maxplus.entry_scan,
+            "K3 forward": cuda_viterbi.viterbi_forward,
+            "K3 entry map": cuda_viterbi.entry_map,
+            "K3 chain": cuda_viterbi.chain,
+            "K3 backtrack": cuda_viterbi.viterbi_backtrack}
+
+
 def phase_viterbi_cli(card, dev, workdir, cli, best_yaml):
     """The Viterbi path: the Viterbi CLI at 3x3 on phase 3's MAF, with phase
     4's best model as its config, on the card and then on the CPU in f32
-    and f64.  Returns K3's launches on the card run."""
+    and f64.  Returns the launches of each route kernel on the card run,
+    by name (:func:`route_counters`): the route's on the long block, and
+    K3's forward and backtrack once a group of the short blocks' batch."""
     import torch
 
     from itrails_tpu_torch.cli import decode
     from itrails_tpu_torch.cli.common import prepare_decode_setup
     from itrails_tpu_torch.cli.viterbi import main
     from itrails_tpu_torch.config import load_config
-    from itrails_tpu_torch.hmm import cuda_viterbi, windows
+    from itrails_tpu_torch.hmm import cuda_viterbi, longseq, windows
 
     lengths = [len(v) for v in cli["v_lst"]]
     n_long = sum(n > decode.LONG_BLOCK_THRESHOLD for n in lengths)
     outs = {label: os.path.join(workdir, f"viterbi_{label}", "sim")
             for label in ("card", "cpu32", "cpu64")}
+    counters = route_counters()
+    for f in counters.values():
+        f.launches = 0
     cuda_viterbi.viterbi_fused.calls = 0
-    cuda_viterbi.viterbi_fused.launches = 0
     t0 = time.perf_counter()
     main([best_yaml, "--output", outs["card"]])
     torch.cuda.synchronize()
     calls = cuda_viterbi.viterbi_fused.calls
-    launches = cuda_viterbi.viterbi_fused.launches
+    route = {name: f.launches for name, f in counters.items()}
     seconds = {"card": time.perf_counter() - t0}
-    # the two CPU runs (K3's plain version, ~40 s each) in processes of
-    # their own, at once
+    # the two CPU runs (the plain versions; ~40 s each before the route
+    # took the long block) in processes of their own, at once
     env = dict(os.environ, OMP_NUM_THREADS="4", PYTHONPATH=os.pathsep.join(
         p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
     procs = {}
@@ -1540,9 +1715,26 @@ def phase_viterbi_cli(card, dev, workdir, cli, best_yaml):
             log.close()
     runs = {label: (seconds[label], outs[label] + ".viterbi.csv")
             for label in outs}
-    check(calls == 1 + n_long,
-          f"K3 called {calls} times for 1 batch of short blocks + {n_long} "
-          "long block(s)")
+    long_lengths = [n for n in lengths if n > decode.LONG_BLOCK_THRESHOLD]
+    n_groups = sum(len(longseq.viterbi_ranges(n, 27, torch.float32))
+                   for n in long_lengths)
+    n_states = 27
+    # K3 on the short blocks' batch, the forward and the backtrack once a
+    # group
+    setup = prepare_decode_setup(load_config(best_yaml))
+    _, a, bfull, pi = decode.build(setup, "float32", dev)
+    short = [v for v in cli["v_lst"] if len(v) <= decode.LONG_BLOCK_THRESHOLD]
+    batch = torch.as_tensor(windows.pack_windows(short)[0], device=dev)
+    n_short = -(-batch.shape[0] // cuda_viterbi.window_group(batch.shape[1],
+                                                            n_states))
+    expected = dict.fromkeys(counters, n_groups)
+    expected["K3 forward"] += n_short
+    expected["K3 backtrack"] += n_short
+    check(calls == 1 and n_long >= 1 and route == expected,
+          f"K3 called {calls} times for 1 batch of short blocks (one-window K3 "
+          f"on a long block is off the path); launches {route}, where "
+          f"{n_long} long block(s) in {n_groups} group(s) of chunks and "
+          f"{n_short} group(s) of short blocks take {expected}")
     with open(runs["card"][1], "rb") as f:
         card_csv = f.read()
     with open(runs["cpu32"][1], "rb") as f:
@@ -1550,7 +1742,6 @@ def phase_viterbi_cli(card, dev, workdir, cli, best_yaml):
     on_card = read_viterbi_csv(runs["card"][1], lengths)
     cpu32 = read_viterbi_csv(runs["cpu32"][1], lengths)
     cpu64 = read_viterbi_csv(runs["cpu64"][1], lengths)
-    n_states = 27
     check(all(((p >= 0) & (p < n_states)).all() for p in on_card),
           "the card's paths hold a state out of range")
     long_blocks = [i for i, n in enumerate(lengths)
@@ -1560,24 +1751,15 @@ def phase_viterbi_cli(card, dev, workdir, cli, best_yaml):
           "the card's viterbi.csv differs from the f32 plain version's (CPU): "
           f"{sum(int((x != y).sum()) for x, y in zip(on_card, cpu32))} columns")
 
-    # K3 alone on each of the CLI's batches, on the card's tables
-    setup = prepare_decode_setup(load_config(best_yaml))
-    _, a, bfull, pi = decode.build(setup, "float32", dev)
-    short = [v for v in cli["v_lst"] if len(v) <= decode.LONG_BLOCK_THRESHOLD]
-    batches = [windows.pack_windows(short)[0]] + [
-        np.asarray(v, np.int32)[None, :] for v in cli["v_lst"]
-        if len(v) > decode.LONG_BLOCK_THRESHOLD]
-    # each call launches the forward and the backtrack once per window group
-    expected = sum(2 * -(-tok.shape[0] // cuda_viterbi.window_group(
-        tok.shape[1], n_states)) for tok in batches)
-    check(launches == expected,
-          f"K3 launched {launches} times in {calls} calls; the CLI's batches "
-          f"take {expected}")
-    per_batch = []
-    for tok in batches:
-        tok = torch.as_tensor(tok, device=dev)
-        ms = cuda_ms(lambda: cuda_viterbi.viterbi_fused(a, bfull, pi, tok), 1)
-        per_batch.append(f"{tuple(tok.shape)} {ms:.2f} ms")
+    # K3 alone on the short blocks' batch, the route on each long block, on
+    # the card's tables
+    ms = cuda_ms(lambda: cuda_viterbi.viterbi_fused(a, bfull, pi, batch), 1)
+    per_batch = [f"K3 on {tuple(batch.shape)} {ms:.2f} ms"]
+    for v in cli["v_lst"]:
+        if len(v) > decode.LONG_BLOCK_THRESHOLD:
+            tok = torch.as_tensor(np.asarray(v, np.int32), device=dev)
+            ms = cuda_ms(lambda: longseq.viterbi_long(a, bfull, pi, tok), 1)
+            per_batch.append(f"the route on ({len(v)},) {ms:.2f} ms")
 
     diff_blocks = [i for i, (x, y) in enumerate(zip(on_card, cpu64))
                    if not np.array_equal(x, y)]
@@ -1595,7 +1777,8 @@ def phase_viterbi_cli(card, dev, workdir, cli, best_yaml):
     print(f"{card} | phase 6 Viterbi CLI 3x3 on {sum(lengths)} "
           f"columns in {len(lengths)} blocks ({n_long} long), config "
           f"{os.path.basename(best_yaml)} of phase 4: card {runs['card'][0]:.2f} s "
-          f"(K3 calls {calls}, launches {launches}; K3 alone per batch: "
+          f"(K3 calls {calls} on the short blocks, {n_short} group(s); "
+          f"launches {route}; alone: "
           f"{', '.join(per_batch)}); CPU f32 and f64 at once in two "
           f"processes, done after {runs['cpu32'][0]:.2f} and "
           f"{runs['cpu64'][0]:.2f} s (host clock, whole CLI); the card's "
@@ -1606,12 +1789,13 @@ def phase_viterbi_cli(card, dev, workdir, cli, best_yaml):
           f"from the CPU f64 path: {n_diff} of {sum(lengths)} in "
           f"{len(diff_blocks)} block(s), f64 score margin of the f64 path "
           f"per block {', '.join(f'{x:.3g}' for x in margins) or 'none'}")
-    return launches
+    return route
 
 
 def phase_segmented(card, dev, cli, best_yaml):
-    """The segmented route on the card: the 320 kb block in segments, the
-    threshold lowered, against its one-pass path."""
+    """The segmented route on the card, off the CLI's path since the
+    Viterbi route: the 320 kb block in SEGMENT_COLS-column segments against
+    its one-pass path."""
     import torch
 
     from itrails_tpu_torch.cli import decode
@@ -1622,33 +1806,31 @@ def phase_segmented(card, dev, cli, best_yaml):
     setup = prepare_decode_setup(load_config(best_yaml))
     _, a, bfull, pi = decode.build(setup, "float32", dev)
     (block,) = [v for v in cli["v_lst"] if len(v) > decode.LONG_BLOCK_THRESHOLD]
-    threshold, seg_cols = SEGMENTS
-    check(len(block) > threshold, "the long block is below the segment threshold")
     tok = torch.as_tensor(np.asarray(block, np.int32), device=dev)
     t0 = time.perf_counter()
     one_pass = decoders.viterbi_fast(a, bfull, pi, tok[None, :])[0].cpu().numpy()
     one_s = time.perf_counter() - t0
-    saved = decode.SEGMENTED_VITERBI_THRESHOLD, decoders.SEGMENT_COLUMNS
-    decode.SEGMENTED_VITERBI_THRESHOLD, decoders.SEGMENT_COLUMNS = SEGMENTS
+    saved = decoders.SEGMENT_COLUMNS
+    decoders.SEGMENT_COLUMNS = SEGMENT_COLS
     try:
         cuda_viterbi.viterbi_fused.calls = 0
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
         t0 = time.perf_counter()
-        (segmented,) = decode.run_viterbi(a, bfull, pi, [block])
+        segmented = decoders.viterbi_segmented(a, bfull, pi, tok).cpu().numpy()
         seg_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated(dev) - base
         calls = cuda_viterbi.viterbi_fused.calls
     finally:
-        decode.SEGMENTED_VITERBI_THRESHOLD, decoders.SEGMENT_COLUMNS = saved
-    n_seg = -(-(len(block) - 1) // seg_cols)
+        decoders.SEGMENT_COLUMNS = saved
+    n_seg = -(-(len(block) - 1) // SEGMENT_COLS)
     check(calls == 2 * n_seg - 1,
           f"segmented route: {calls} K3 calls for {n_seg} segments")
     check(np.array_equal(segmented, one_pass),
           f"segmented route differs from one pass at "
           f"{int((segmented != one_pass).sum())} columns")
     print(f"{card} | phase 7 segmented Viterbi on the card: the "
-          f"{len(block)}-column block in {n_seg} segments of {seg_cols} "
+          f"{len(block)}-column block in {n_seg} segments of {SEGMENT_COLS} "
           f"columns ({calls} K3 calls) equals its one-pass path at every "
           f"column; segmented {seg_s:.3f} s, one pass {one_s:.3f} s (host "
           f"clock), peak device memory of the segmented call {peak} bytes")
@@ -1848,7 +2030,7 @@ def phase_posterior_groups(card, dev, cli, best_yaml, route_rows):
     """The route in several groups and the segmented reference: the 320 kb
     block through the route with, in turn, the operator budget and the store
     budget lowered to a fifth of its chunks, against phase 8's one-group
-    rows; then ``decoders.posterior_segmented`` with SEGMENTS' segment
+    rows; then ``decoders.posterior_segmented`` with SEGMENT_COLS' segment
     length, bit for bit the one-window K4 rows of the block."""
     import torch
 
@@ -1904,7 +2086,7 @@ def phase_posterior_groups(card, dev, cli, best_yaml, route_rows):
                      "bytes")
 
     one = decoders.posterior_fast(a, bfull, pi, tok[None, :])[:, 0, :]
-    seg_cols = SEGMENTS[1]
+    seg_cols = SEGMENT_COLS
     saved_cols = decoders.SEGMENT_COLUMNS
     decoders.SEGMENT_COLUMNS = seg_cols
     try:
@@ -2180,8 +2362,9 @@ def phase_long_posterior(card, dev, cli):
     POST_ATOL (3x3), the f32 error split into the tables' rounding, the
     route's own part (K5 in f32 and the boundary rows; gated at POST_ATOL
     against one-window f64 K4 on the same f32 tables) and K4's f32
-    arithmetic on the chunk windows (printed); the route's stages (K5 on a, K5 on a^T, the boundary rows, K4
-    on the chunk windows, the rows to the host) timed apart at each of
+    arithmetic on the chunk windows and on one window (each gated at
+    POST_ATOL); the route's stages (K5 on a, K5 on a^T, the boundary rows,
+    K4 on the chunk windows, the rows to the host) timed apart at each of
     ROUTE_CHUNKS; then 1e7 simulated columns at 3x3 against
     ``decoders.posterior_segmented`` on the card, segment by segment, at
     POST64_ATOL."""
@@ -2244,6 +2427,10 @@ def phase_long_posterior(card, dev, cli):
               f"{label}: the route's own f32 part (K5 in f32, K4 in f64) off "
               f"one-window f64 K4 on the same tables by {split32[2]:.3g} (atol "
               f"{POST_ATOL:g})")
+        check(max(split32[3], split32[4]) <= POST_ATOL,
+              f"{label}: K4's f32 arithmetic off one-window f64 K4 on the same "
+              f"tables by {split32[3]:.3g} on the chunk windows and "
+              f"{split32[4]:.3g} on one window (atol {POST_ATOL:g})")
         # its memory in the allocator's cache, as a stream of blocks finds it
         ms_again = timed(lambda: longseq.posterior_long(*tables, tok))[1]
         bound_ms, bound_by = k4_bound_ms(m, tok[None], size=8)
@@ -2269,8 +2456,7 @@ def phase_long_posterior(card, dev, cli):
                  f"{split32[1]:.3g}, its own part (K5 in f32, K4 in f64) "
                  f"{split32[2]:.3g} (atol {POST_ATOL:g}), K4's f32 arithmetic "
                  f"on the chunk windows (K5 in f64) {split32[3]:.3g} and on one "
-                 f"window {split32[4]:.3g} (no gate, as phase 2's K4 on "
-                 f"simulated runs)")
+                 f"window {split32[4]:.3g} (atol {POST_ATOL:g} each)")
         parts.append(line)
 
         _, al0, _ = cuda_fwd.column0(bfull, pi, tok[:1])
@@ -2347,6 +2533,163 @@ def phase_long_posterior(card, dev, cli):
           f"route (CUDA events, one call each): " + "; ".join(sweep))
 
 
+def run_margins(tables, tok, ref, got):
+    """The f64 score margin of each maximal run of columns where the path
+    ``got`` departs from ``ref`` (numpy arrays): the score of ``ref`` over
+    the run and the columns beside it, less that of ``got``, under the
+    clamped log tables of ``tables`` (a, bfull, pi) in f64; positive where
+    ``ref`` scores higher."""
+    from itrails_tpu_torch.hmm import cuda_viterbi
+
+    log_a, log_bt, log_pi = (x.double().cpu().numpy() for x in
+                             cuda_viterbi.log_tables(*tables))
+    idx = np.flatnonzero(ref != got)
+    if idx.size == 0:
+        return []
+    cut = np.flatnonzero(np.diff(idx) > 1)
+    starts = idx[np.r_[0, cut + 1]]
+    ends = idx[np.r_[cut, idx.size - 1]] + 1
+    margins = []
+    for lo, hi in zip(starts, ends):
+        lo, hi = max(lo - 1, 0), min(hi + 1, len(ref))
+        col = np.arange(lo, hi)
+        real = tok[col] >= 0
+
+        def score(path):
+            e = log_bt[np.clip(tok[col], 0, 624), path[col]][real].sum()
+            tr = log_a[path[col[:-1]], path[col[1:]]][real[1:]].sum()
+            return e + tr + (log_pi[path[0]] if lo == 0 else 0.0)
+
+        margins.append(float(score(ref) - score(got)))
+    return margins
+
+
+def phase_long_viterbi(card, dev, cli):
+    """A long block's Viterbi path through the sequence-parallel route (K6,
+    the entry scan, K3's forward over the chunk windows, its entry map, the
+    chain, its backtrack) on f32 tables, as K3 runs: on phase 3's 320 kb
+    block at 3x3, the same block on the 3x3 model with states 0 and 1 made
+    exchangeable (exact ties at every column), and a 320 kb block simulated
+    from the 7x7 model, against K3 walking the block as one window on the
+    card (exact at 3x3, ties included; at 7x7 exact, or every run of
+    differing columns within VITERBI_MARGIN nats in f64) and, at 3x3,
+    against the route's plain version on the card (exact), with one launch
+    of each of its six kernels, its milliseconds and peak device memory,
+    and its stages timed apart; then 1e7 columns simulated from the 3x3
+    model against ``decoders.viterbi_segmented`` on the card, exactly."""
+    import torch
+
+    from itrails_tpu_torch.hmm import (cuda_maxplus, cuda_viterbi, decoders,
+                                       longseq)
+
+    (block,) = [v for v in cli["v_lst"] if len(v) == LONG_BLOCK]
+    tok3 = torch.as_tensor(np.asarray(block, np.int32), device=dev)
+    cases = [("3x3 320 kb block of phase 3", 3, 3, tok3, False),
+             ("3x3 ties, the same block", 3, 3, tok3, True),
+             ("7x7 320 kb", 7, 7, simulated_block(dev, 7, 7, 17), False)]
+    counters = route_counters()
+    parts, stages = [], []
+    for label, n_ab, n_abc, tok, tie in cases:
+        a, bfull, pi, _ = build_tables(n_ab, n_abc, dev)
+        tables = [x.float().contiguous() for x in (a, bfull, pi)]
+        if tie:
+            a32, b32, p32 = tables
+            a32[1] = a32[0]
+            a32[:, 1] = a32[:, 0]
+            b32[1] = b32[0]
+            p32[1] = p32[0]
+        m = a.shape[0]
+        one, one_ms = timed(
+            lambda: cuda_viterbi.viterbi_fused(*tables, tok[None])[0][0])
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        before = {name: f.launches for name, f in counters.items()}
+        route, ms = timed(lambda: longseq.viterbi_long(*tables, tok))
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        launched = {name: f.launches - before[name]
+                    for name, f in counters.items()}
+        check(launched == dict.fromkeys(counters, 1),
+              f"{label}: the route's launches {launched}, one each expected")
+        ms_again = timed(lambda: longseq.viterbi_long(*tables, tok))[1]
+        n_diff = int((route != one).sum())
+        line = (f"{label} (M={m}, {len(tok)} columns, chunk "
+                f"{longseq.ROUTE_CHUNK}): route {ms:.3f} / {ms_again:.3f} ms "
+                f"(first call / a later one), peak device memory {peak} bytes; "
+                f"one-window K3 {one_ms:.2f} ms ({one_ms / ms_again:.1f}x the "
+                f"route); columns off one-window K3's path {n_diff}")
+        if m == 27:
+            check(n_diff == 0, f"{label}: the route departs from one-window "
+                               f"K3 at {n_diff} columns")
+            plain, plain_ms = timed(lambda: longseq.viterbi_long_plain(*tables,
+                                                                        tok))
+            check(torch.equal(route, plain),
+                  f"{label}: the route departs from its plain version at "
+                  f"{int((route != plain).sum())} columns")
+            line += f", equal to its plain version ({plain_ms:.1f} ms)"
+        else:
+            margins = run_margins((a, bfull, pi), tok.cpu().numpy(),
+                                  one.cpu().numpy(), route.cpu().numpy())
+            check(all(abs(x) < VITERBI_MARGIN for x in margins),
+                  f"{label}: runs off one-window K3 by f64 margins {margins} "
+                  f"(limit {VITERBI_MARGIN:g} nats)")
+            line += (f" in {len(margins)} run(s), f64 score margins "
+                     f"{', '.join(f'{x:.3g}' for x in margins) or 'none'} "
+                     f"(limit {VITERBI_MARGIN:g} nats)")
+        if tie:
+            check(not bool((route == 1).any()),
+                  f"{label}: a tie went to the second of two equal states")
+            line += ", state 1 never taken"
+        parts.append(line)
+
+        # the stages, each timed alone after the route
+        chunk = longseq.ROUTE_CHUNK
+        n_chunks = -(-(len(tok) - 1) // chunk)
+        log_a, log_bt, log_pi = cuda_viterbi.log_tables(*tables)
+        omega = cuda_viterbi.column0(log_bt, log_pi, tok[:1])[0].double()
+        stream = longseq.chunk_matrix(tok, 0, n_chunks, chunk)
+        windows = torch.cat([tok[0:n_chunks * chunk:chunk, None], stream], dim=1)
+        (g, off), k6_ms = timed(
+            lambda: cuda_maxplus.maxplus_operators(log_a, log_bt, stream))
+        (ent, _), scan_ms = timed(lambda: cuda_maxplus.entry_scan(g, off, omega))
+        del g, off
+        (ptrs, om), fwd_ms = timed(
+            lambda: cuda_viterbi.viterbi_forward(log_a, log_bt, ent, windows))
+        maps, map_ms = timed(lambda: cuda_viterbi.entry_map(ptrs))
+        states, chain_ms = timed(lambda: cuda_viterbi.chain(maps, om[-1]))
+        _, back_ms = timed(
+            lambda: cuda_viterbi.viterbi_backtrack(ptrs, om, states[1:]))
+        del ptrs
+        total = k6_ms + scan_ms + fwd_ms + map_ms + chain_ms + back_ms
+        stages.append(f"{label} M={m} C={n_chunks}: K6 {k6_ms:.3f} + entry scan "
+                      f"{scan_ms:.3f} + K3 forward {fwd_ms:.3f} + entry map "
+                      f"{map_ms:.3f} + chain {chain_ms:.3f} + backtrack "
+                      f"{back_ms:.3f} = {total:.3f} ms")
+
+    # 1e7 columns: the route against viterbi_segmented
+    tables = [x.float().contiguous() for x in build_tables(3, 3, dev)[:3]]
+    tok = simulated_block(dev, 3, 3, 19, LONG_SIM)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    route, ms = timed(lambda: longseq.viterbi_long(*tables, tok))
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    n_groups = len(longseq.viterbi_ranges(len(tok), 27, torch.float32))
+    t0 = time.perf_counter()
+    seg = decoders.viterbi_segmented(*tables, tok)
+    torch.cuda.synchronize()
+    seg_s = time.perf_counter() - t0
+    n_diff = int((route != seg).sum())
+    check(n_diff == 0, f"3x3 1e7 columns: the route departs from "
+                       f"viterbi_segmented at {n_diff} columns")
+    parts.append(f"3x3 {len(tok)} columns: route {ms:.3f} ms in {n_groups} "
+                 f"group(s), peak device memory {peak} bytes, equal to "
+                 f"viterbi_segmented ({seg_s:.2f} s, host clock, segments of "
+                 f"{decoders.SEGMENT_COLUMNS} columns)")
+    print(f"{card} | phase 13 long-block Viterbi path, the route on f32 "
+          f"tables: " + "; ".join(parts))
+    print(f"{card} | phase 13 the route's stages, each timed alone after it "
+          f"(CUDA events, one call each): " + "; ".join(stages))
+
+
 def main():
     import torch
 
@@ -2384,21 +2727,24 @@ def run_phases(card, dev, t_start):
           for seed, (shape, rec) in enumerate(zip(K1_SHAPES, k1))]
     for seed, (label, n_ab, n_abc, _, _) in enumerate(K1_SHAPES):
         phase_k2_chunks(card, dev, label, n_ab, n_abc, seed=20 + seed, reps=10)
-    k3 = [phase_k3(card, dev, *shape, seed=seed, reps=10)
-          for seed, shape in enumerate(K1_SHAPES)]
+    for seed, shape in enumerate(K1_SHAPES):
+        phase_k3(card, dev, *shape, seed=seed, reps=10)
     phase_k3(card, dev, "3x3", 3, 3, *TIE_SHAPE, seed=5, reps=2, tie=True)
     k4 = [phase_k4(card, dev, *shape, seed=seed, reps=10)
           for seed, shape in enumerate(K1_SHAPES)]
     phase_k4_run_lengths(card, dev)
     k5 = [phase_k5(card, dev, label, n_ab, n_abc, seed=seed, reps=10)
           for seed, (label, n_ab, n_abc, _, _) in enumerate(K1_SHAPES)]
+    route_k = [phase_viterbi_route_kernels(card, dev, label, n_ab, n_abc,
+                                           seed=30 + seed, reps=10)
+               for seed, (label, n_ab, n_abc, _, _) in enumerate(K1_SHAPES)]
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
         k1_launches, _, cli = phase_cli(card, dev, work)
         k2_calls, _, best_yaml = phase_cli_grad(card, dev, work, cli)
         phase_genome(card, dev)
         phase_cli_fd(card, dev, work, cli)  # its CPU run started in phase 3
-        k3_launches = phase_viterbi_cli(card, dev, work, cli, best_yaml)
+        route_launches = phase_viterbi_cli(card, dev, work, cli, best_yaml)
         phase_segmented(card, dev, cli, best_yaml)
         k4_launches, k5_post_launches, long_rows = phase_posterior_cli(
             card, dev, work, cli, best_yaml)
@@ -2406,16 +2752,21 @@ def run_phases(card, dev, t_start):
         phase_long_value(card, dev, cli)
         phase_long_grad(card, dev, cli)
         phase_long_posterior(card, dev, cli)
+        phase_long_viterbi(card, dev, cli)
     print(f"{card} | all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     # each record at the genome-scale 3x3 shape of phase 2 (K1, K4 and K5
     # in f64, the CLIs' default; K5 on the 625 chunks of ROUTE_CHUNK columns
-    # of a 320 kb block, the posterior path's shape);
+    # of a 320 kb block, the posterior path's shape; K3, K6 and its scan at
+    # 3x3 on the Viterbi route's 625 chunks of a 320 kb block, K3 as its
+    # four parts there: forward, entry map, chain and backtrack);
     # launches from the CLI run of its own path (K1: phase 3, K2: phase 4,
-    # the main path, where each K2 call launches its two kernels, K3: phase
-    # 6, two kernels a call, K4 and K5: phase 8, the posterior path, K4 two
-    # kernels a call, K5 twice a group of the long block's chunks; K5's
-    # launches on the main path, phase 4, are printed there)
+    # the main path, where each K2 call launches its two kernels, K3, K6
+    # and the scan: phase 6, the Viterbi CLI, K3's four parts on its long
+    # block and its forward and backtrack on the short blocks' batch; K4
+    # and K5: phase 8, the posterior path, K4 two kernels a call, K5 twice
+    # a group of the long block's chunks; K5's launches on the main path,
+    # phase 4, are printed there)
     record = {"kernels": [{
         "name": "k1_forward",
         "route": "cuda",
@@ -2437,9 +2788,10 @@ def run_phases(card, dev, t_start):
         "route": "cuda",
         "source": "itrails_tpu_torch/csrc/viterbi.cu",
         "replaces": "itrails_tpu/hmm/pallas_viterbi.py:299",
-        "launches": k3_launches,
+        "launches": sum(route_launches[name] for name in (
+            "K3 forward", "K3 entry map", "K3 chain", "K3 backtrack")),
         "library_ms": None,  # no single PyTorch call computes this function
-        **k3[0],
+        **route_k[0]["k3"],
     }, {
         "name": "k4_posterior",
         "route": "cuda",
@@ -2457,6 +2809,24 @@ def run_phases(card, dev, t_start):
         # no single PyTorch call computes a chunk's chain of products
         "library_ms": None,
         **k5[0],
+    }, {
+        "name": "k6_maxplus_operators",
+        "route": "cuda",
+        "source": "itrails_tpu_torch/csrc/maxplus.cu",
+        "replaces": "none: XLA ops at itrails_tpu/hmm/longseq.py:328-342",
+        "launches": route_launches["K6"],
+        # no PyTorch call computes a max-plus product, let alone its chain
+        "library_ms": None,
+        **route_k[0]["k6"],
+    }, {
+        "name": "k6_entry_scan",
+        "route": "cuda",
+        "source": "itrails_tpu_torch/csrc/maxplus.cu",
+        "replaces": "none: lax.associative_scan at itrails_tpu/hmm/longseq.py:344",
+        "launches": route_launches["scan"],
+        # no PyTorch call computes a max-plus scan
+        "library_ms": None,
+        **route_k[0]["scan"],
     }]}
     print(json.dumps(record))
     print(card)

@@ -23,7 +23,7 @@ from itrails_tpu_torch.cli.common import (
 from itrails_tpu_torch.core.model import build_model
 from itrails_tpu_torch.data.maf import maf_reference_coordinates, maf_tokens
 from itrails_tpu_torch.data.tokens import aggregation_matrix
-from itrails_tpu_torch.hmm import decoders, windows
+from itrails_tpu_torch.hmm import decoders, longseq, windows
 
 __all__ = ["TOPOLOGY_MAP", "build", "decode_main", "load_inputs",
            "run_posterior", "run_viterbi",
@@ -144,13 +144,10 @@ def write_hidden_states(path, model, setup, first_interval_from_ab: bool):
     print(f"Hidden states written to file {path}.")
 
 
-# Blocks longer than this leave the window batch and decode as one-window
-# batches of their own (the JAX package decodes them sequence-parallel; in
-# the port that is later work, after the optimize value's operator path).
+# Blocks longer than this leave the window batch and decode
+# sequence-parallel, each through its own route (longseq.viterbi_long,
+# longseq.posterior_long_pieces), as in the JAX package.
 LONG_BLOCK_THRESHOLD = windows.LONG_BLOCK_THRESHOLD
-# Above this length a block decodes in bounded-memory segments
-# (decoders.viterbi_segmented) instead of with one whole pointer table.
-SEGMENTED_VITERBI_THRESHOLD = 8_388_608
 
 
 def _split_by_length(v_lst):
@@ -161,9 +158,10 @@ def _split_by_length(v_lst):
 
 def run_viterbi(a, bfull, pi, v_lst):
     """The Viterbi path of every block, as int32 numpy arrays, on the
-    tables' device: the short blocks as one padded window batch, each long
-    block as a one-window batch, or in segments above
-    SEGMENTED_VITERBI_THRESHOLD."""
+    tables' device: the short blocks as one padded window batch (kernel
+    K3), each block above LONG_BLOCK_THRESHOLD through the sequence-parallel
+    route ``longseq.viterbi_long`` (K6, its entry scan and K3 over the
+    block's chunk windows), in bounded memory whatever its length."""
     dev = a.device
     short, long = _split_by_length(v_lst)
     out = [None] * len(v_lst)
@@ -177,11 +175,7 @@ def run_viterbi(a, bfull, pi, v_lst):
             out[i] = row
     for i, v in long:
         v = torch.as_tensor(np.asarray(v, np.int32), device=dev)
-        if len(v) > SEGMENTED_VITERBI_THRESHOLD:
-            path = decoders.viterbi_segmented(a, bfull, pi, v)
-        else:
-            path = decoders.viterbi_fast(a, bfull, pi, v[None, :])[0]
-        out[i] = path.cpu().numpy()
+        out[i] = longseq.viterbi_long(a, bfull, pi, v).cpu().numpy()
     return out
 
 

@@ -1,7 +1,8 @@
 """``itrails-tpu-torch-viterbi``: most-likely gene-tree path decoding
 (reference workflow_viterbi.py, and ``itrails-tpu-viterbi``): the same
 flags, config schema and CSV artifacts.  It runs on the card, with kernel
-K3, unless ``--device cpu`` is given."""
+K3 (and, for a block above 262,144 columns, the route of K6 and K3's parts,
+``hmm/longseq.py:viterbi_long``), unless ``--device cpu`` is given."""
 
 from __future__ import annotations
 

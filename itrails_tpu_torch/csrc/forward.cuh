@@ -39,7 +39,8 @@
 //   the kernel as the f64 value of the sum minus its compensation.
 //
 // The helpers below are templated on the scalar R.  K2 instantiates float
-// only, K4 float and double; K5 (csrc/operators.cu) and K1 reuse
+// only, K4 float and double, each with a (and the product's accumulation)
+// in double; K5 (csrc/operators.cu) and K1 reuse
 // load_emission.  With G = true, Mat reads a from a zero-padded
 // (32S, 32S + 1) copy in global memory (L2) instead of shared memory, for
 // the sizes where shared memory cannot hold it beside a kernel's other
@@ -225,16 +226,20 @@ struct Mat {
 
 // One forward column: reads alpha from the warp's shared row x, returns
 // a^T alpha in atu and the normalized next alpha, and the normalizer.
-// Every lane must have written x before the call.
-template <int S, typename R, bool G>
-__device__ __forceinline__ R forward_step(const Mat<S, R, G>& am, const R* x,
+// Every lane must have written x before the call.  The product runs in A,
+// the scalar of a and of x (K4's float instantiation: double), and is
+// rounded to R once.
+template <int S, typename R, typename A, bool G>
+__device__ __forceinline__ R forward_step(const Mat<S, A, G>& am, const A* x,
                                           const R (&e)[S], R (&atu)[S],
                                           R (&alpha)[S], int lane) {
-  am.at_x(atu, x, lane);
+  A acc[S];
+  am.at_x(acc, x, lane);
   R nx[S];
   R part = 0;
 #pragma unroll
   for (int k = 0; k < S; ++k) {
+    atu[k] = static_cast<R>(acc[k]);
     nx[k] = atu[k] * e[k];
     part += nx[k];
   }
@@ -247,12 +252,14 @@ __device__ __forceinline__ R forward_step(const Mat<S, R, G>& am, const R* x,
 // The forward recurrence over columns 1..T-1 of every window.  With
 // TC > 0 it also writes the carry before columns 1, 1 + TC, 1 + 2 TC, ...
 // into chk; a null alpha_out skips the final alpha, and a null ll_out the
-// loglik (ll0 is then not read).  A double instantiation (K4) is capped at
-// two blocks an SM instead of four, which leaves it 128 registers.
-template <int S, int TC, typename R = float, bool G = false>
+// loglik (ll0 is then not read).  A is the scalar of a and of the shared
+// alpha rows, in which the product accumulates (K4: double in both its
+// instantiations); an instantiation with a in double is capped at two
+// blocks an SM instead of four, which leaves it 128 registers.
+template <int S, int TC, typename R = float, bool G = false, typename A = R>
 __global__ void __launch_bounds__(kFwdWarps * 32,
-                                  sizeof(R) == 4 ? kFwdBlocksPerSM : 2)
-forward_kernel(const R* __restrict__ a,         // (M, M), or (32S, 32S+1) with G
+                                  sizeof(A) == 4 ? kFwdBlocksPerSM : 2)
+forward_kernel(const A* __restrict__ a,         // (M, M), or (32S, 32S+1) with G
                const R* __restrict__ bt,        // (625, 32*S), zero pad
                const R* __restrict__ al0,       // (W, M) alpha after col 0
                const R* __restrict__ ll0,       // (W,) log-norm of col 0
@@ -263,17 +270,17 @@ forward_kernel(const R* __restrict__ a,         // (M, M), or (32S, 32S+1) with 
                int W, int T, int M) {
   constexpr int MP = 32 * S;
   extern __shared__ float4 smem4[];
-  R* smem = reinterpret_cast<R*>(smem4);
-  R* s_al = smem + Mat<S, R, G>::kSmem;
+  A* smem = reinterpret_cast<A*>(smem4);
+  A* s_al = smem + Mat<S, A, G>::kSmem;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  Mat<S, R, G> am;
+  Mat<S, A, G> am;
   am.load(a, smem, M, lane);
   __syncthreads();
   const int w = blockIdx.x * kFwdWarps + warp;
   if (w >= W) return;  // after the only block-wide barrier
 
-  R* al = s_al + warp * MP;
+  A* al = s_al + warp * MP;
   R alpha[S];
 #pragma unroll
   for (int k = 0; k < S; ++k) {
@@ -343,14 +350,14 @@ forward_kernel(const R* __restrict__ a,         // (M, M), or (32S, 32S+1) with 
 }
 
 // Dynamic shared memory of forward_kernel: a (S > 1, !G) and one alpha row
-// a warp.
-template <int S, typename R = float, bool G = false>
+// a warp, in the scalar A of a.
+template <int S, typename A = float, bool G = false>
 size_t forward_smem() {
-  return static_cast<size_t>(Mat<S, R, G>::kSmem + kFwdWarps * 32 * S) *
-         sizeof(R);
+  return static_cast<size_t>(Mat<S, A, G>::kSmem + kFwdWarps * 32 * S) *
+         sizeof(A);
 }
 
-// Whether the forward kernel on scalar R (K4) reads a from a padded
+// Whether the forward kernel with a in scalar R (K4) reads a from a padded
 // copy in global memory (L2): in double above S = 5 the (32S, 32S + 1)
 // copy no longer fits the 227 KB of shared memory a block may use beside
 // the warps' rows (S = 5: 206 KB of a and 10 KB of rows; S = 6: 296 KB of
@@ -391,9 +398,10 @@ int k1_table_width(int M) { return 32 * ((M + 31) / 32); }
 
 int k1_max_states() { return 32 * kMaxS; }
 
-// Row stride of the zero-padded (32S, 32S + 1) copy of a that K4 reads
-// from global memory at M states in double (f64 != 0) or float, or 0 where
-// it takes a as the plain (M, M) matrix.
+// Row stride of the zero-padded (32S, 32S + 1) copy of a that a kernel
+// reads from global memory at M states with a in double (f64 != 0; K4 in
+// both its instantiations) or float, or 0 where it takes a as the plain
+// (M, M) matrix.
 int k1_a_stride(int M, int f64) {
   const int S = (M + 31) / 32;
   return f64 != 0 && S > 5 ? 32 * S + 1 : 0;

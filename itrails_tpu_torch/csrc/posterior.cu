@@ -18,12 +18,13 @@
 // forward, Mat::at_x, not K2's textbook a x.  The scale factors of alpha
 // and beta cancel in gamma's normalization, so no logs are needed.
 //
-// What bounds it on an H100: per non-PAD column two M x M products and
-// the elementwise and normalize work, about 4 M^2 + 9 M f32 operations,
-// against 4 bytes of token in and 4 M bytes of gamma out, so the function
-// is bound by f32 issue (67 TFLOP/s outside the tensor cores): 33.5 M
-// columns at M = 27 need ~1.6 ms.  The recursion is sequential in t in
-// both directions, so the parallelism is across windows.  The alpha store
+// What bounds it on an H100: per non-PAD column two M x M products (in
+// f64, see below) and the elementwise and normalize work, about 4 M^2 +
+// 9 M operations, against 4 bytes of token in and 4 M bytes of gamma out,
+// so the function is bound by issue (67 TFLOP/s, f32 outside the tensor
+// cores and f64 on them): 33.5 M columns at M = 27 need ~1.6 ms.  The
+// recursion is sequential in t in both directions, so the parallelism is
+// across windows.  The alpha store
 // (written by the forward, read back and overwritten with gamma by the
 // reverse sweep) is a cost of this design, not of the function; its
 // callers split a batch into window groups under a byte budget
@@ -46,8 +47,13 @@
 //   column (the segmented route's reverse pass); with a store, beta at
 //   the first column is written only where the caller asks for it;
 // * both kernels are instantiated on float and on double (the posterior
-//   CLI's default, --precision float64): the same code on the scalar R,
-//   so the float instantiation keeps the f32 K4's bits.  f32 tables alone
+//   CLI's default, --precision float64): the same code on the scalar R
+//   of the tables, the store and the elementwise work.  In both, a and
+//   the warp's broadcast row are double (Mat<S, double>), so each M-term
+//   product accumulates in f64 and is rounded to R once: with the product
+//   in float, its M roundings a column put a long block's f32 posterior
+//   further from the f64 one than the JAX package's f32 route
+//   (tests/test_torch_posterior_long.py).  f32 tables alone
 //   put the posterior off by up to 2.4e-4 on windows whose state runs are
 //   tens of thousands of columns long, which f64 removes.  In double a
 //   sits in shared memory up to M = 160 (S = 5: 206 KB of a and 10 KB of
@@ -70,7 +76,7 @@ namespace {
 // beta_first is null).
 template <int S, typename R, bool G>
 __global__ void __launch_bounds__(kFwdWarps * 32)
-k4_reverse_kernel(const R* __restrict__ a,          // (M, M), or (32S, 32S+1) with G
+k4_reverse_kernel(const double* __restrict__ a,     // (M, M), or (32S, 32S+1) with G
                   const R* __restrict__ bt,         // (625, 32*S), zero pad
                   const int* __restrict__ tokens,   // (W, T), PAD = -1
                   const R* __restrict__ beta_exit,  // (W, M) or null: ones
@@ -80,17 +86,17 @@ k4_reverse_kernel(const R* __restrict__ a,          // (M, M), or (32S, 32S+1) w
                   int W, int T, int M) {
   constexpr int MP = 32 * S;
   extern __shared__ float4 smem4[];
-  R* smem = reinterpret_cast<R*>(smem4);
-  R* s_x = smem + Mat<S, R, G>::kSmem;
+  double* smem = reinterpret_cast<double*>(smem4);
+  double* s_x = smem + Mat<S, double, G>::kSmem;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  Mat<S, R, G> am;
+  Mat<S, double, G> am;
   am.load(a, smem, M, lane);
   __syncthreads();
   const int w = blockIdx.x * kFwdWarps + warp;
   if (w >= W) return;  // after the only block-wide barrier
 
-  R* x = s_x + warp * MP;
+  double* x = s_x + warp * MP;
   R beta[S];
 #pragma unroll
   for (int k = 0; k < S; ++k) {
@@ -148,11 +154,15 @@ k4_reverse_kernel(const R* __restrict__ a,          // (M, M), or (32S, 32S+1) w
 #pragma unroll
       for (int k = 0; k < S; ++k) x[lane + 32 * k] = e[k] * beta[k];
       __syncwarp();
+      double acc[S];
+      am.at_x(acc, x, lane);
       R nx[S];
-      am.at_x(nx, x, lane);
       R part = 0;
 #pragma unroll
-      for (int k = 0; k < S; ++k) part += nx[k];
+      for (int k = 0; k < S; ++k) {
+        nx[k] = static_cast<R>(acc[k]);  // the product rounded once
+        part += nx[k];
+      }
       const R s = warp_sum(part);
       const R d = s > R(0) ? s : R(1);
 #pragma unroll
@@ -180,13 +190,13 @@ template <int S, typename R>
 int launch_forward(const void* a, const void* bt, const void* al0,
                    const int* tokens, void* store, void* alpha_fin, int W,
                    int T, int M, cudaStream_t stream) {
-  constexpr bool G = a_in_global<S, R>();
-  const size_t smem = forward_smem<S, R, G>();
-  const cudaError_t err = allow_smem(forward_kernel<S, 1, R, G>, smem);
+  constexpr bool G = a_in_global<S, double>();
+  const size_t smem = forward_smem<S, double, G>();
+  const cudaError_t err = allow_smem(forward_kernel<S, 1, R, G, double>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  forward_kernel<S, 1, R, G>
+  forward_kernel<S, 1, R, G, double>
       <<<(W + kFwdWarps - 1) / kFwdWarps, kFwdWarps * 32, smem, stream>>>(
-          static_cast<const R*>(a), static_cast<const R*>(bt),
+          static_cast<const double*>(a), static_cast<const R*>(bt),
           static_cast<const R*>(al0), nullptr, tokens,
           static_cast<R*>(alpha_fin), nullptr, static_cast<R*>(store), W, T, M);
   return static_cast<int>(cudaGetLastError());
@@ -197,13 +207,14 @@ int launch_reverse(const void* a, const void* bt, const int* tokens,
                    const void* beta_exit, const void* alpha_fin, void* store,
                    void* beta_first, int W, int T, int M,
                    cudaStream_t stream) {
-  constexpr bool G = a_in_global<S, R>();
-  const size_t smem = forward_smem<S, R, G>();  // the same a and one row a warp
+  constexpr bool G = a_in_global<S, double>();
+  // the same a and one row a warp
+  const size_t smem = forward_smem<S, double, G>();
   const cudaError_t err = allow_smem(k4_reverse_kernel<S, R, G>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   k4_reverse_kernel<S, R, G>
       <<<(W + kFwdWarps - 1) / kFwdWarps, kFwdWarps * 32, smem, stream>>>(
-          static_cast<const R*>(a), static_cast<const R*>(bt), tokens,
+          static_cast<const double*>(a), static_cast<const R*>(bt), tokens,
           static_cast<const R*>(beta_exit), static_cast<const R*>(alpha_fin),
           static_cast<R*>(store), static_cast<R*>(beta_first), W, T, M);
   return static_cast<int>(cudaGetLastError());
@@ -236,11 +247,11 @@ extern "C" {
 int k4_max_states() { return 32 * kMaxS; }
 
 // The tables' layout is K1's: bt is (625, k1_table_width(M)), a store row
-// is k1_table_width(M) wide, and a is the padded copy of k1_a_stride(M,
-// f64) where that is not 0.
+// is k1_table_width(M) wide, and a is double, in both instantiations: the
+// padded copy of k1_a_stride(M, 1) where that is not 0.
 
 // The forward: alpha_t into store row t for t < T-1, alpha_{T-1} into
-// alpha_fin (W, M).  Every float argument is double where f64 != 0.
+// alpha_fin (W, M).  Every float argument but a is double where f64 != 0.
 int k4_forward(const void* a, const void* bt, const void* al0,
                const int* tokens, void* store, void* alpha_fin, int W, int T,
                int M, int f64, void* stream) {

@@ -45,47 +45,40 @@
 //   conflict); above that lanes read it through the read-only cache;
 // * the log-emission row is a gather from the transposed table
 //   lbt (625, 32S), one step ahead, as in forward_kernel (csrc/forward.cuh);
+// * the column loop is maxplus_columns (csrc/maxplus_forward.cuh), which
+//   kernel K6 (csrc/maxplus.cu) runs without pointers for its operator
+//   rows: one body for both;
 // * pointers are uint8 (M <= 255), stored (W, T-1, M);
 // * the backtrack is one thread per window, a chain of dependent byte
 //   loads.
 //
-// Launch contract: the C entry point enqueues both kernels on the given
+// A long block (hmm/longseq.py:viterbi_long) runs as a batch of chunk
+// windows, each entered through an omega read from kernel K6's max-plus
+// operators (csrc/maxplus.cu), and needs the forward's pointer table after
+// the forward: the forward, the backtrack and two more kernels are entry
+// points of their own, and a window batch (hmm/cuda_viterbi.py:
+// viterbi_fused) is the forward, then the backtrack.
+// * The entry map, one thread per (window, exit state), consecutive
+//   threads on one window's states so that a warp reads one pointer row:
+//   each walks its window's pointers back from its exit state and records
+//   the state at the window's column 0, a (W, M) map.  Every walk is the
+//   window's length, not the block's.
+// * The chain, one thread: window w's exit state is window w+1's state at
+//   column 0, so from the last window's exit state, W lookups in the maps
+//   give every window's exit state.  The backtrack then starts each
+//   window from its own.
+//
+// Launch contract: each C entry point enqueues its kernels on the given
 // stream, does not synchronize, allocates nothing, and returns
 // cudaGetLastError().
 
-#include <cuda_runtime.h>
-
-#include <cstddef>
-#include <cstdint>
+#include "maxplus_forward.cuh"  // maxplus_columns, load_log_a and the helpers
 
 namespace {
 
-constexpr int kWarps = 8;      // windows per block of the forward kernel
 constexpr int kMaxS = 8;       // states per lane: M <= 255 (uint8 pointers)
-constexpr int kSmemMaxS = 7;   // log_a in shared memory up to M = 224
 constexpr int kMaxStates = 255;
-constexpr int kTokens = 625;   // alphabet size
-constexpr int kPad = -1;
 constexpr int kBacktrackThreads = 128;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
-// Log-emission of the lane's states for one token; the row of a token
-// outside the alphabet is clamped to it, as the plain version's gather.
-template <int S>
-__device__ __forceinline__ void load_log_emission(float (&e)[S],
-                                                  const float* __restrict__ lbt,
-                                                  int tok, int lane) {
-  const int row = tok < 0 ? 0 : (tok >= kTokens ? kTokens - 1 : tok);
-  const float* r = lbt + static_cast<size_t>(row) * (32 * S);
-#pragma unroll
-  for (int k = 0; k < S; ++k) e[k] = __ldg(r + lane + 32 * k);
-}
 
 // The max-plus forward over columns 1..T-1 of every window: pointers and
 // the final rescaled omega.  For 1 < S < kMaxS (log_a in shared memory)
@@ -100,23 +93,11 @@ viterbi_forward(const float* __restrict__ la,     // (M, 32S), log a, row i
                 uint8_t* __restrict__ ptr,        // (W, T-1, M)
                 float* __restrict__ om_out,       // (W, M)
                 int W, int T, int M) {
-  constexpr int MP = 32 * S;
-  constexpr bool kRegs = S == 1;
-  constexpr bool kShared = S > 1 && S <= kSmemMaxS;
   extern __shared__ float s_la[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-
-  float col[kRegs ? 32 : 1];  // col[i] = log_a[i][lane]
-  if constexpr (kRegs) {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) col[i] = i < M ? la[i * MP + lane] : -INFINITY;
-  }
-  if constexpr (kShared) {
-    for (int idx = threadIdx.x; idx < M * MP; idx += blockDim.x)
-      s_la[idx] = la[idx];
-    __syncthreads();
-  }
+  float col[S == 1 ? 32 : 1];  // col[i] = log_a[i][lane]
+  const float* rows = load_log_a<S>(col, la, s_la, M, lane);
   const int w = blockIdx.x * kWarps + warp;
   if (w >= W) return;  // after the only block-wide barrier
 
@@ -126,91 +107,11 @@ viterbi_forward(const float* __restrict__ la,     // (M, 32S), log a, row i
     const int j = lane + 32 * k;
     om[k] = j < M ? om0[static_cast<size_t>(w) * M + j] : -INFINITY;
   }
-
-  const int* row = tokens + static_cast<size_t>(w) * T;
-  uint8_t* wptr = ptr + static_cast<size_t>(w) * (T - 1) * M;
-  int tok = T > 1 ? row[1] : kPad;
-  float e[S];
-  load_log_emission<S>(e, lbt, tok, lane);
-
-  for (int t = 1; t < T; ++t) {
-    const int tok_n = t + 1 < T ? __ldg(row + t + 1) : kPad;
-    float e_n[S];
-    load_log_emission<S>(e_n, lbt, tok_n, lane);  // consumed next step
-    uint8_t* p = wptr + static_cast<size_t>(t - 1) * M;
-
-    if (tok != kPad) {  // uniform across the warp: one window per warp
-      float best[S];
-      int arg[S];
-#pragma unroll
-      for (int k = 0; k < S; ++k) {
-        best[k] = -INFINITY;
-        arg[k] = 0;
-      }
-#pragma unroll
-      for (int kk = 0; kk < S; ++kk) {
-        const int base = 32 * kk;
-        if constexpr (kRegs) {
-#pragma unroll
-          for (int l = 0; l < 32; ++l) {  // l >= M adds -inf: no effect
-            const float s = __shfl_sync(kFull, om[0], l) + col[l];
-            if (s > best[0]) {
-              best[0] = s;
-              arg[0] = l;
-            }
-          }
-        } else {
-          const int lim = M - base < 32 ? M - base : 32;
-          for (int l = 0; l < lim; ++l) {
-            const int i = base + l;
-            const float oi = __shfl_sync(kFull, om[kk], l);
-            const float* r = (kShared ? s_la : la) + i * MP + lane;
-#pragma unroll
-            for (int k = 0; k < S; ++k) {
-              float a_ij;
-              if constexpr (kShared) {
-                a_ij = r[32 * k];
-              } else {
-                a_ij = __ldg(r + 32 * k);
-              }
-              const float s = oi + a_ij;
-              if (s > best[k]) {
-                best[k] = s;
-                arg[k] = i;
-              }
-            }
-          }
-        }
-      }
-      float nv[S];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int k = 0; k < S; ++k) {
-        const int j = lane + 32 * k;
-        nv[k] = j < M ? best[k] + e[k] : -INFINITY;
-        mx = fmaxf(mx, nv[k]);
-      }
-      mx = warp_max(mx);
-#pragma unroll
-      for (int k = 0; k < S; ++k) {
-        const int j = lane + 32 * k;
-        if (j < M) {
-          om[k] = nv[k] - mx;
-          p[j] = static_cast<uint8_t>(arg[k]);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < S; ++k) {
-        const int j = lane + 32 * k;
-        if (j < M) p[j] = static_cast<uint8_t>(j);
-      }
-    }
-    tok = tok_n;
-#pragma unroll
-    for (int k = 0; k < S; ++k) e[k] = e_n[k];
-  }
-
+  double unused = 0.0;
+  maxplus_columns<S, true>(om, col, rows, lbt,
+                           tokens + static_cast<size_t>(w) * T + 1, T - 1,
+                           ptr + static_cast<size_t>(w) * (T - 1) * M, unused,
+                           M, lane);
 #pragma unroll
   for (int k = 0; k < S; ++k) {
     const int j = lane + 32 * k;
@@ -250,10 +151,52 @@ viterbi_backtrack(const uint8_t* __restrict__ ptr,  // (W, T-1, M)
   }
 }
 
+// The entry map: map[w][s] = the state at column 0 of window w on the
+// path that leaves it in state s (see the note at the top).
+__global__ void __launch_bounds__(kBacktrackThreads)
+viterbi_entry_map(const uint8_t* __restrict__ ptr,  // (W, T-1, M)
+                  int* __restrict__ map,            // (W, M)
+                  int W, int T, int M) {
+  const long long idx =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= static_cast<long long>(W) * M) return;
+  const int w = static_cast<int>(idx / M);
+  int s = static_cast<int>(idx - static_cast<long long>(w) * M);
+  const uint8_t* p = ptr + static_cast<size_t>(w) * (T - 1) * M;
+  for (int t = T - 1; t >= 1; --t) s = p[static_cast<size_t>(t - 1) * M + s];
+  map[idx] = s;
+}
+
+// The chain, one thread: states[W] is ``start[0]`` when given, else
+// argmax_j om_last[j] (first index); states[w] = map[w][states[w+1]].
+__global__ void viterbi_chain(const int* __restrict__ map,      // (W, M)
+                              const float* __restrict__ om_last,  // (M,)
+                              const int* __restrict__ start,    // (1,) or null
+                              int* __restrict__ states,         // (W + 1,)
+                              int W, int M) {
+  int s = 0;
+  if (start != nullptr) {
+    s = start[0];
+  } else {
+    float best = om_last[0];
+    for (int j = 1; j < M; ++j) {
+      if (om_last[j] > best) {
+        best = om_last[j];
+        s = j;
+      }
+    }
+  }
+  states[W] = s;
+  for (int w = W - 1; w >= 0; --w) {
+    s = map[static_cast<size_t>(w) * M + s];
+    states[w] = s;
+  }
+}
+
 template <int S>
-int launch_k3(const float* la, const float* lbt, const float* om0,
-              const int* tokens, const int* last, uint8_t* ptr, float* om_out,
-              int* path, int W, int T, int M, cudaStream_t stream) {
+int launch_forward(const float* la, const float* lbt, const float* om0,
+                   const int* tokens, uint8_t* ptr, float* om_out, int W,
+                   int T, int M, cudaStream_t stream) {
   const size_t smem = (S > 1 && S <= kSmemMaxS)
                           ? static_cast<size_t>(M) * 32 * S * sizeof(float)
                           : 0;
@@ -265,41 +208,68 @@ int launch_k3(const float* la, const float* lbt, const float* om0,
   }
   viterbi_forward<S><<<(W + kWarps - 1) / kWarps, kWarps * 32, smem, stream>>>(
       la, lbt, om0, tokens, ptr, om_out, W, T, M);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  viterbi_backtrack<<<(W + kBacktrackThreads - 1) / kBacktrackThreads,
-                      kBacktrackThreads, 0, stream>>>(ptr, om_out, last, path,
-                                                      W, T, M);
   return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_shape(int W, int T, int M) {
+  return W < 1 || T < 1 || M < 1 || M > kMaxStates;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Pad width of the log tables la and lbt for M states (32*S).
-int k3_table_width(int M) { return 32 * ((M + 31) / 32); }
-
 int k3_max_states() { return kMaxStates; }
 
-// Both kernels of K3 on one window group: the forward writes ptr and
-// om_out, the backtrack path.  ``last`` may be null.
-int k3_viterbi(const float* la, const float* lbt, const float* om0,
-               const int* tokens, const int* last, uint8_t* ptr,
-               float* om_out, int* path, int W, int T, int M, void* stream) {
-  if (W < 1 || T < 1 || M < 1 || M > kMaxStates)
-    return static_cast<int>(cudaErrorInvalidValue);
+// K3's forward on a window batch: ptr (W, T-1, M) and om_out (W, M).
+int k3_forward(const float* la, const float* lbt, const float* om0,
+               const int* tokens, uint8_t* ptr, float* om_out, int W, int T,
+               int M, void* stream) {
+  if (bad_shape(W, T, M)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((M + 31) / 32) {
-    case 1: return launch_k3<1>(la, lbt, om0, tokens, last, ptr, om_out, path, W, T, M, s);
-    case 2: return launch_k3<2>(la, lbt, om0, tokens, last, ptr, om_out, path, W, T, M, s);
-    case 3: return launch_k3<3>(la, lbt, om0, tokens, last, ptr, om_out, path, W, T, M, s);
-    case 4: return launch_k3<4>(la, lbt, om0, tokens, last, ptr, om_out, path, W, T, M, s);
-    case 5: return launch_k3<5>(la, lbt, om0, tokens, last, ptr, om_out, path, W, T, M, s);
-    case 6: return launch_k3<6>(la, lbt, om0, tokens, last, ptr, om_out, path, W, T, M, s);
-    case 7: return launch_k3<7>(la, lbt, om0, tokens, last, ptr, om_out, path, W, T, M, s);
-    default: return launch_k3<kMaxS>(la, lbt, om0, tokens, last, ptr, om_out, path, W, T, M, s);
+    case 1: return launch_forward<1>(la, lbt, om0, tokens, ptr, om_out, W, T, M, s);
+    case 2: return launch_forward<2>(la, lbt, om0, tokens, ptr, om_out, W, T, M, s);
+    case 3: return launch_forward<3>(la, lbt, om0, tokens, ptr, om_out, W, T, M, s);
+    case 4: return launch_forward<4>(la, lbt, om0, tokens, ptr, om_out, W, T, M, s);
+    case 5: return launch_forward<5>(la, lbt, om0, tokens, ptr, om_out, W, T, M, s);
+    case 6: return launch_forward<6>(la, lbt, om0, tokens, ptr, om_out, W, T, M, s);
+    case 7: return launch_forward<7>(la, lbt, om0, tokens, ptr, om_out, W, T, M, s);
+    default: return launch_forward<kMaxS>(la, lbt, om0, tokens, ptr, om_out, W, T, M, s);
   }
+}
+
+// K3's backtrack from the forward's ptr and om: path (W, T).  ``last`` may
+// be null.
+int k3_backtrack(const uint8_t* ptr, const float* om, const int* last,
+                 int* path, int W, int T, int M, void* stream) {
+  if (bad_shape(W, T, M)) return static_cast<int>(cudaErrorInvalidValue);
+  viterbi_backtrack<<<(W + kBacktrackThreads - 1) / kBacktrackThreads,
+                      kBacktrackThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      ptr, om, last, path, W, T, M);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The entry map of a forward's ptr: map (W, M) int32.
+int k3_entry_map(const uint8_t* ptr, int* map, int W, int T, int M,
+                 void* stream) {
+  if (bad_shape(W, T, M)) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n = static_cast<long long>(W) * M;
+  const long long blocks = (n + kBacktrackThreads - 1) / kBacktrackThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  viterbi_entry_map<<<static_cast<unsigned>(blocks), kBacktrackThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(ptr, map, W, T, M);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The chain over W windows' maps: states (W + 1,) int32.  ``start`` may be
+// null, and then om_last (M,) gives the last window's exit state.
+int k3_chain(const int* map, const float* om_last, const int* start,
+             int* states, int W, int M, void* stream) {
+  if (bad_shape(W, 1, M)) return static_cast<int>(cudaErrorInvalidValue);
+  viterbi_chain<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      map, om_last, start, states, W, M);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* k3_error_string(int code) {

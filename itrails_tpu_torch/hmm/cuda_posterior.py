@@ -20,8 +20,12 @@ the textbook ``a x``.  Emission rows follow ``cuda_fwd.emission_rows``, the
 port's one PAD/invalid-token rule.
 
 K4 runs in float32 or in float64, the dtype of the tables it is given: the
-same kernels instantiated on each scalar.  The posterior CLI's default,
-``--precision float64``, runs it in f64 on the card.
+same kernels instantiated on each scalar.  In both, the two products
+``a^T x`` accumulate in f64 and are rounded to the tables' dtype once; the
+rest runs in that dtype.  With the products in f32 the port's f32 route on
+a long block erred more than the JAX package's f32 route
+(``tests/test_torch_posterior_long.py``).  The posterior CLI's default,
+``--precision float64``, runs K4 in f64 on the card.
 
 :func:`posterior_fused` launches K4 for tensors on a CUDA device and runs
 :func:`posterior_fused_plain` only for tensors on the CPU; a CUDA input
@@ -96,6 +100,12 @@ def _normalize(x):
     return x / torch.where(s > 0, s, torch.ones_like(s))
 
 
+def _at_x(x, a64):
+    """``x @ a`` (rows of x times the f64 ``a64``) in f64, rounded once to
+    the dtype of x: K4's products."""
+    return (x.double() @ a64).to(x.dtype)
+
+
 def _emissions(bt, tokens, lo, hi):
     """Emission rows (hi-lo, W, M) and PAD masks (hi-lo, W, 1) of columns
     lo..hi-1."""
@@ -108,6 +118,7 @@ def _reverse_plain(a, bfull, tokens, store, beta_exit):
     """The reverse sweep: gamma over the alpha ``store`` (T, W, M) in place,
     unless it is None; returns beta at column 0."""
     bt = bfull.T
+    a64 = a.double()
     t_len = tokens.shape[1]
     beta = (torch.ones((tokens.shape[0], a.shape[0]), dtype=a.dtype,
                        device=tokens.device)
@@ -118,15 +129,16 @@ def _reverse_plain(a, bfull, tokens, store, beta_exit):
         for k in range(hi - lo - 1, -1, -1):
             if store is not None:
                 store[lo + k] = _normalize(store[lo + k] * beta)
-            beta = torch.where(pad[k], beta, _normalize((e[k] * beta) @ a))
+            beta = torch.where(pad[k], beta, _normalize(_at_x(e[k] * beta, a64)))
     if store is not None:
         store[0] = _normalize(store[0] * beta)
     return beta
 
 
 def posterior_fused_plain(a, bfull, pi, tokens, alpha0=None, beta_exit=None):
-    """K4's function in plain PyTorch, in the dtype of ``a``: the CPU path
-    and the reference K4 is held against on the card.
+    """K4's function in plain PyTorch, in the dtype of ``a`` with the
+    products in f64: the CPU path and the reference K4 is held against on
+    the card.
 
     Args:
       a, bfull, pi: the model's (M, M), (M, 625) and (M,) tables.
@@ -139,6 +151,7 @@ def posterior_fused_plain(a, bfull, pi, tokens, alpha0=None, beta_exit=None):
     alpha (W, M) at column T-1."""
     w, t_len = tokens.shape
     bt = bfull.T
+    a64 = a.double()
     store = torch.empty((t_len, w, a.shape[0]), dtype=a.dtype,
                         device=tokens.device)
     al = column0(bfull, pi, tokens[:, 0])[1] if alpha0 is None else alpha0
@@ -147,7 +160,7 @@ def posterior_fused_plain(a, bfull, pi, tokens, alpha0=None, beta_exit=None):
         hi = min(t_len, lo + _CHUNK)
         e, pad = _emissions(bt, tokens, lo, hi)
         for k in range(hi - lo):
-            nx = (al @ a) * e[k]
+            nx = _at_x(al, a64) * e[k]
             al = torch.where(pad[k], al, nx / nx.sum(dim=1, keepdim=True))
             store[lo + k] = al
     alpha = store[-1].clone()
@@ -179,9 +192,9 @@ def window_group(t_len: int, row_bytes: int) -> int:
 
 def _prepare(name, a, bfull, pi, tokens, beta_exit):
     """Checks the inputs of a launch; returns the library, the matrix a as
-    the kernel reads it (a zero-padded copy where it reads a from global
-    memory), the padded transposed emission table (625, 32S) and the f64
-    flag of the launch."""
+    the kernel reads it (in f64 whatever the tables' dtype, a zero-padded
+    copy where it reads a from global memory), the padded transposed
+    emission table (625, 32S) and the f64 flag of the launch."""
     if tokens.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {tokens.device}")
     lib = _library()
@@ -192,8 +205,8 @@ def _prepare(name, a, bfull, pi, tokens, beta_exit):
         check_state(name, "beta_exit", beta_exit, (tokens.shape[0], m),
                     a.dtype, tokens.device)
     f64 = int(a.dtype == torch.float64)
-    a_k, bt = padded_tables(lib, a, bfull, lib.k1_a_stride(m, f64))
-    return lib, a_k, bt, f64
+    a_k, bt = padded_tables(lib, a, bfull, lib.k1_a_stride(m, 1))
+    return lib, a_k.double().contiguous(), bt, f64
 
 
 def _check_rc(lib, rc):

@@ -7,7 +7,10 @@ reference decoders: a log-space forward scan with a per-step max shift
 (``hmm/cuda_fwd.py``) on the card, its plain version on the CPU.
 ``viterbi_fast`` is the max-plus decoder the Viterbi CLI calls: kernel K3
 (``hmm/cuda_viterbi.py``) on the card, its plain version on the CPU.
-``viterbi_segmented`` decodes one long block in bounded memory.
+``viterbi_segmented`` decodes one long block in bounded memory as one
+warp's walk in segments, bit for bit the one-pass path: off the Viterbi
+CLI's path since the sequence-parallel route ``longseq.viterbi_long``
+took long blocks, and the card's reference for it.
 ``posterior_fast`` is K4's dispatch: kernel K4 (``hmm/cuda_posterior.py``)
 on the card, its plain version on the CPU; ``posterior_stream``, what the
 posterior CLI calls, streams every block's posterior in bounded memory, a

@@ -36,6 +36,14 @@ from K5's operators of ``a``, beta at every chunk's exit from K5's
 operators of ``a^T`` (the posterior's backward contracts over the source
 state), then one K4 call over the chunk windows.
 :func:`posterior_long_pieces` streams it, one group of chunks at a time.
+
+:func:`viterbi_long` gives the block's Viterbi path, the contract of
+``itrails_tpu/hmm/longseq.py:298``, in the (max, +) semiring: kernel K6
+(``hmm/cuda_maxplus.py``) builds every chunk's max-plus operator, its scan
+reads omega at every chunk's entry, and one K3 forward
+(``hmm/cuda_viterbi.py``) takes every chunk as a window entered through
+its omega; K3's entry map, a chain of one lookup a chunk and K3's
+backtrack then give the path with no walk longer than a chunk.
 """
 
 from __future__ import annotations
@@ -44,7 +52,7 @@ import torch
 
 from itrails_tpu_torch.data.tokens import PAD_TOKEN
 from itrails_tpu_torch.hmm import (cuda_fwd, cuda_grad, cuda_longseq,
-                                   cuda_posterior)
+                                   cuda_maxplus, cuda_posterior, cuda_viterbi)
 from itrails_tpu_torch.hmm.cuda_longseq import chunk_operators
 
 __all__ = ["CHUNK", "OPERATOR_BUDGET_BYTES", "ROUTE_CHUNK",
@@ -52,15 +60,17 @@ __all__ = ["CHUNK", "OPERATOR_BUDGET_BYTES", "ROUTE_CHUNK",
            "exit_rows", "forward_loglik_long", "forward_loglik_long_and_grads",
            "forward_loglik_long_and_grads_plain", "forward_loglik_long_plain",
            "posterior_long", "posterior_long_pieces", "posterior_long_plain",
-           "posterior_ranges"]
+           "posterior_ranges", "viterbi_long", "viterbi_long_plain",
+           "viterbi_ranges"]
 
 # Columns of one chunk of the value path: the JAX engine's
 # (itrails_tpu/optim/optimizer.py:66).
 CHUNK = 1024
-# Columns of one chunk of the long-block routes, the gradient's and the
-# posterior's: K5's chunk, and K2's and K4's window less its entry column
-# (chip_smoke.py's phases 11 and 12 time both routes at 256, 512 and 1,024;
-# PERF.md).
+# Columns of one chunk of the long-block routes, the gradient's, the
+# posterior's and the Viterbi path's: K5's and K6's chunk, and K2's, K3's
+# and K4's window less its entry column
+# (chip_smoke.py's phases 11 and 12 time the gradient's and the posterior's
+# routes at 256, 512 and 1,024; PERF.md).
 ROUTE_CHUNK = 512
 # Bytes of the (C_g, M, M) operators of one group of chunks, built and folded
 # before the next group is built: 368,224 chunks (377 M columns) at M = 27,
@@ -475,3 +485,110 @@ def _posterior_pieces(operators, k4, a, bfull, pi, tokens, chunk):
             rows[0] = post[0, 0]
         del post  # the group's store goes before the next group runs
         yield rows[:head + n]
+
+
+def viterbi_long(a, bfull, pi, tokens, *, chunk=None):
+    """Viterbi path (T,) int32 of one block, a 1-D token tensor,
+    sequence-parallel: the contract of ``itrails_tpu/hmm/longseq.py:298
+    viterbi_long``, in K3's recursion (``hmm/cuda_viterbi.py``: logs
+    clamped at NEG, omega rescaled by its max every column, the first index
+    winning ties).
+
+    Columns 1..T-1 are cut into chunks of ``chunk`` columns (default
+    ROUTE_CHUNK), the last right-padded with PAD.  A first pass builds the
+    chunks' max-plus operators with K6 (``cuda_maxplus.maxplus_operators``)
+    and reads omega at every chunk's entry from them
+    (``cuda_maxplus.entry_scan``, in f64 from column 0's omega); only those
+    (C, M) entries are kept.  A second pass takes the chunks from last to
+    first: one K3 forward (``cuda_viterbi.viterbi_forward``) over the
+    (C, chunk + 1) windows, window c being block columns ``c chunk ..
+    (c + 1) chunk`` entered through its entry omega; K3's entry map
+    (``cuda_viterbi.entry_map``: for every window and exit state, the
+    state at its column 0); the chain (``cuda_viterbi.chain``): the last
+    window leaves in the argmax of its final omega, and window c leaves in
+    the state at window c+1's column 0; then K3's backtrack
+    (``cuda_viterbi.viterbi_backtrack``) of every window from its exit
+    state.  No walk is longer than a chunk.
+
+    The chunks are taken in the groups of :func:`viterbi_ranges`, whose
+    operators fit OPERATOR_BUDGET_BYTES and whose pointer table fits
+    ``cuda_viterbi.POINTER_BUDGET_BYTES``: the first pass carries omega
+    from group to group, and the second hands each group the state at the
+    next group's first column.  The device then holds one group's
+    operators or pointer table, and the (C, M) entries, whatever the
+    block's length.
+
+    On the card the kernels run in float32 (the tables must be contiguous
+    float32, M <= 224); on the CPU their plain versions run in the dtype of
+    ``a``.  The kernels take the plain versions' operations in their order,
+    so the card's path equals the CPU's float32 path bit for bit."""
+    return _viterbi_long(False, a, bfull, pi, tokens, chunk)
+
+
+def viterbi_long_plain(a, bfull, pi, tokens, *, chunk=None):
+    """:func:`viterbi_long` with the plain versions of K6, its scan and K3's
+    parts on the tables' device and dtype: the reference the route is held
+    against on the card."""
+    return _viterbi_long(True, a, bfull, pi, tokens, chunk)
+
+
+def viterbi_ranges(t_len, m, dtype, chunk=None):
+    """``(lo, hi)`` chunk ranges of the groups in which :func:`viterbi_long`
+    takes a ``t_len``-column block at ``m`` states with tables of
+    ``dtype``: their operators (M^2 entries of the dtype and M f64 offsets
+    a chunk) fit OPERATOR_BUDGET_BYTES and their pointer table (``chunk``
+    x M a chunk, uint8; int32 above 255 states) fits
+    ``cuda_viterbi.POINTER_BUDGET_BYTES``."""
+    chunk = ROUTE_CHUNK if chunk is None else chunk
+    size = torch.empty((), dtype=dtype).element_size()
+    ptr_size = 1 if m <= 255 else 4
+    by_operators = OPERATOR_BUDGET_BYTES // (m * m * size + 8 * m)
+    by_pointers = cuda_viterbi.POINTER_BUDGET_BYTES // (chunk * m * ptr_size)
+    return _ranges(t_len, chunk, min(by_operators, by_pointers))
+
+
+def _route_steps(plain):
+    """K6, its scan and K3's four parts: the wrappers, or their plain
+    versions."""
+    if plain:
+        return (cuda_maxplus.maxplus_operators_plain,
+                cuda_maxplus.entry_scan_plain,
+                cuda_viterbi.viterbi_forward_plain,
+                cuda_viterbi.entry_map_plain, cuda_viterbi.chain_plain,
+                cuda_viterbi.viterbi_backtrack_plain)
+    return (cuda_maxplus.maxplus_operators, cuda_maxplus.entry_scan,
+            cuda_viterbi.viterbi_forward, cuda_viterbi.entry_map,
+            cuda_viterbi.chain, cuda_viterbi.viterbi_backtrack)
+
+
+def _viterbi_long(plain, a, bfull, pi, tokens, chunk):
+    operators, scan, forward, entry_map, chain, backtrack = _route_steps(plain)
+    chunk = ROUTE_CHUNK if chunk is None else chunk
+    t_len = tokens.shape[0]
+    log_a, log_bt, log_pi = cuda_viterbi.log_tables(a, bfull, pi)
+    omega = cuda_viterbi.column0(log_bt, log_pi, tokens[:1])[0]
+    if t_len == 1:
+        return omega.argmax().to(torch.int32).reshape(1)
+    groups = viterbi_ranges(t_len, a.shape[0], a.dtype, chunk)
+    entries = []
+    omega = omega.double()
+    for lo, hi in groups:
+        g, off = operators(log_a, log_bt, chunk_matrix(tokens, lo, hi, chunk))
+        ent, omega = scan(g, off, omega)
+        del g, off
+        entries.append(ent)
+    path = torch.empty((t_len,), dtype=torch.int32, device=tokens.device)
+    start = None  # the last group leaves in the argmax of its final omega
+    for (lo, hi), ent in zip(groups[::-1], entries[::-1]):
+        first = tokens[lo * chunk:hi * chunk:chunk, None]
+        windows = torch.cat([first, chunk_matrix(tokens, lo, hi, chunk)], dim=1)
+        ptrs, om = forward(log_a, log_bt, ent, windows)
+        states = chain(entry_map(ptrs), om[-1], start)
+        rows = backtrack(ptrs, om, states[1:])
+        del ptrs
+        # block columns lo chunk + 1 .. min(hi chunk, T - 1)
+        n = min(hi * chunk, t_len - 1) - lo * chunk
+        path[lo * chunk + 1:lo * chunk + 1 + n] = rows[:, 1:].reshape(-1)[:n]
+        start = states[:1]  # the state at this group's first column
+    path[0] = start[0]
+    return path

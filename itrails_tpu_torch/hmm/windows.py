@@ -18,9 +18,8 @@ __all__ = ["pack_windows", "plan_buckets"]
 
 # Blocks longer than this leave the length-class buckets: padding a bucket
 # to such a length would multiply the work of every short block in it.
-# The engine (optim/optimizer.py) evaluates each of them on its own: the
-# value on the transfer-operator path (hmm/longseq.py), the gradient as a
-# one-window batch.
+# The engine (optim/optimizer.py) and the decode CLIs take each of them on
+# its own, sequence-parallel (hmm/longseq.py).
 LONG_BLOCK_THRESHOLD = 262_144
 
 

@@ -68,17 +68,20 @@ def _run_both(args, tmp_path):
 
 
 @pytest.mark.parametrize("case", ["config", "flags", "override", "reference",
-                                  "cutpoints", "long_block"])
+                                  "cutpoints", "long_block", "long_block_chunks"])
 def test_cli_matches_the_jax_cli(case, tmp_path, monkeypatch):
-    if case == "long_block":
+    if case.startswith("long_block"):
         # both complete blocks of the MAF (60 and 45 columns) above the
-        # threshold, on both sides: the JAX package's long-block path, the
-        # port's one-window batches
+        # threshold, on both sides: the JAX package's longseq.viterbi_long,
+        # the port's (one chunk a block, or chunks of 8 columns)
         from itrails_tpu.cli import decode as jax_decode
         from itrails_tpu_torch.cli import decode as port_decode
+        from itrails_tpu_torch.hmm import longseq
 
         monkeypatch.setattr(jax_decode, "LONG_BLOCK_THRESHOLD", 36)
         monkeypatch.setattr(port_decode, "LONG_BLOCK_THRESHOLD", 36)
+        if case == "long_block_chunks":
+            monkeypatch.setattr(longseq, "ROUTE_CHUNK", 8)
     (vj, vp), (hj, hp) = _run_both(_case_args(case, tmp_path), tmp_path)
     assert vp == vj and len(vj.splitlines()) >= 3  # header + both blocks
     assert hp == hj and len(hj.splitlines()) == 1 + 11

@@ -129,6 +129,44 @@ def test_f32_tables_stay_within_k4s_tolerance(name):
                                atol=2e-5)
 
 
+@pytest.mark.parametrize("rate", [1.0, 0.1, 0.01])
+def test_f32_route_on_long_runs_errs_no_more_than_the_jax_route(rate):
+    """65,536 columns simulated from the 3x3 model with its recombination
+    rate scaled by ``rate`` (one state's runs of ~630, ~6,300 and ~63,000
+    columns), both routes on the same float32 tables: the port's
+    ``posterior_long`` and the JAX ``longseq.posterior_long``, the route the
+    JAX posterior CLI takes at ``--precision float32``.  Each is held
+    against the JAX route in f64 on the same tables upcast; the port's
+    error must be no larger than the JAX package's."""
+    from itrails_tpu.hmm.longseq import posterior_long as jax_posterior_long
+    from itrails_tpu_torch.core.model import build_model_fn
+    from itrails_tpu_torch.data.simulate import simulate_token_batch
+    from itrails_tpu_torch.data.tokens import aggregation_matrix
+    from itrails_tpu_torch.hmm import decoders, longseq
+    from itrails_tpu_torch.optim.cases import resolve_times
+
+    d = resolve_times(frozenset(["t_1"]), dict(
+        t_1=2.4e-3, t_2=4e-4, t_upper=7.450693855e-3, N_AB=5e-4, N_ABC=5e-4,
+        r=rate, n_int_AB=3, n_int_ABC=3))
+    a, b, pi, _, _ = build_model_fn(3, 3, device="cpu")(
+        d["t_A"], d["t_B"], d["t_C"], d["t_2"], d["t_upper"], d["t_out"],
+        d["N_AB"], d["N_ABC"], d["r"])
+    bfull = decoders.emission_table(b, aggregation_matrix())
+    tok = simulate_token_batch(a, b, pi, 1, 65_536,
+                               torch.Generator().manual_seed(21)).reshape(-1)
+    f32 = [x.float().contiguous() for x in (a, bfull, pi)]
+    ref = np.asarray(jax_posterior_long(
+        *(jnp.asarray(x.double().numpy()) for x in f32), jnp.asarray(tok.numpy())))
+    jax32 = np.asarray(jax_posterior_long(
+        *(jnp.asarray(x.numpy()) for x in f32), jnp.asarray(tok.numpy())))
+    port32 = longseq.posterior_long(*f32, tok).double().numpy()
+    err_jax = np.abs(jax32 - ref).max()
+    err_port = np.abs(port32 - ref).max()
+    print(f"rate x{rate:g}: port {err_port:.3g}, JAX route {err_jax:.3g}")
+    assert jax32.dtype == np.float32 and err_jax > 0
+    assert err_port <= err_jax, (err_port, err_jax)
+
+
 def test_exit_rows_of_a_transposed_are_the_posteriors_beta():
     """With an ``a`` far from symmetric: entry rows of the operators of
     ``a`` are alpha at each chunk's entry, exit rows of the operators of

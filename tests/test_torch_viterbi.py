@@ -23,6 +23,13 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _k3_launches(cuda_viterbi):
+    """K3's kernel launches so far: a window batch is its forward, then its
+    backtrack."""
+    return (cuda_viterbi.viterbi_forward.launches
+            + cuda_viterbi.viterbi_backtrack.launches)
+
+
 def _random_model(m, seed=0, tie=False):
     """``(a, bfull, pi)`` in f64 numpy.  With ``tie``, states 0 and 1 are
     exchangeable (equal rows and columns of a, equal emission rows, equal
@@ -157,12 +164,12 @@ def test_fast_dispatch_on_cpu_is_the_plain_version():
     a, bfull, pi = (torch.tensor(x) for x in _random_model(11, seed=5))
     tok = torch.tensor(_tokens(4, 31, seed=6))
     calls = cuda_viterbi.viterbi_fused.calls
-    launches = cuda_viterbi.viterbi_fused.launches
+    launches = _k3_launches(cuda_viterbi)
     got = decoders.viterbi_fast(a, bfull, pi, tok)
     assert torch.equal(got, _plain(a, bfull, pi, tok))
     assert got.dtype == torch.int32 and tuple(got.shape) == (4, 31)
     assert cuda_viterbi.viterbi_fused.calls == calls
-    assert cuda_viterbi.viterbi_fused.launches == launches
+    assert _k3_launches(cuda_viterbi) == launches
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -187,11 +194,13 @@ def test_entry_omega_and_final_state_continue_a_window(dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_segmented_route_matches_one_pass(dtype, monkeypatch):
-    """run_viterbi with the long-block and segment thresholds lowered: the
-    segmented route gives the one-pass route's paths, bit for bit, and both
-    give the plain decoder's."""
+    """run_viterbi with the long-block threshold lowered (its long blocks
+    through the sequence-parallel route) and ``viterbi_segmented`` in
+    128-column segments, which the CLI no longer calls and the card holds
+    the route against: both give the one-pass plain decoder's paths, bit
+    for bit."""
     from itrails_tpu_torch.cli import decode
-    from itrails_tpu_torch.hmm import decoders
+    from itrails_tpu_torch.hmm import decoders, longseq
 
     dt = getattr(torch, dtype)
     a, bfull, pi = (torch.tensor(x, dtype=dt) for x in _random_model(27, seed=9))
@@ -199,13 +208,14 @@ def test_segmented_route_matches_one_pass(dtype, monkeypatch):
     v_lst = [rng.integers(0, 625, size=n).astype(np.int32)
              for n in (40, 700, 1301, 90)]
     monkeypatch.setattr(decode, "LONG_BLOCK_THRESHOLD", 100)
-    one_pass = decode.run_viterbi(a, bfull, pi, v_lst)
-    monkeypatch.setattr(decode, "SEGMENTED_VITERBI_THRESHOLD", 600)
+    monkeypatch.setattr(longseq, "ROUTE_CHUNK", 64)
+    routed = decode.run_viterbi(a, bfull, pi, v_lst)
     monkeypatch.setattr(decoders, "SEGMENT_COLUMNS", 128)
-    segmented = decode.run_viterbi(a, bfull, pi, v_lst)
-    for v, p1, p2 in zip(v_lst, one_pass, segmented):
-        ref = _plain(a, bfull, pi, torch.tensor(v)[None, :])[0]
-        np.testing.assert_array_equal(p2, p1)
+    for v, p1 in zip(v_lst, routed):
+        tok = torch.tensor(v)
+        ref = _plain(a, bfull, pi, tok[None, :])[0]
+        np.testing.assert_array_equal(
+            decoders.viterbi_segmented(a, bfull, pi, tok).numpy(), ref.numpy())
         np.testing.assert_array_equal(p1, ref.numpy())
         assert p1.dtype == np.int32 and len(p1) == len(v)
 
@@ -233,10 +243,10 @@ def test_k3_matches_plain_on_the_card(m, tie, cuda_device):
     a, bfull, pi = (torch.tensor(x, dtype=torch.float32, device=cuda_device)
                     for x in _random_model(m, seed=m, tie=tie))
     tok = torch.tensor(_tokens(67, 301, seed=13), device=cuda_device)
-    launches = cuda_viterbi.viterbi_fused.launches
+    launches = _k3_launches(cuda_viterbi)
     path, omega = cuda_viterbi.viterbi_fused(a, bfull, pi, tok)
     torch.cuda.synchronize()
-    assert cuda_viterbi.viterbi_fused.launches == launches + 2
+    assert _k3_launches(cuda_viterbi) == launches + 2
     log_a, log_bt, log_pi = cuda_viterbi.log_tables(a, bfull, pi)
     om0 = cuda_viterbi.column0(log_bt, log_pi, tok[:, 0])
     ref, om_ref = cuda_viterbi.viterbi_fused_plain(log_a, log_bt, om0, tok)
@@ -255,10 +265,10 @@ def test_k3_window_groups_and_segments_on_the_card(cuda_device, monkeypatch):
     tok = torch.tensor(_tokens(50, 400, seed=15), device=cuda_device)
     whole = cuda_viterbi.viterbi_fused(a, bfull, pi, tok)[0]
     monkeypatch.setattr(cuda_viterbi, "POINTER_BUDGET_BYTES", 7 * 399 * 27)
-    launches = cuda_viterbi.viterbi_fused.launches
+    launches = _k3_launches(cuda_viterbi)
     grouped = cuda_viterbi.viterbi_fused(a, bfull, pi, tok)[0]
     assert torch.equal(grouped, whole)
-    assert cuda_viterbi.viterbi_fused.launches == launches + 2 * 8  # 50 / 7
+    assert _k3_launches(cuda_viterbi) == launches + 2 * 8  # 50 / 7
     row = torch.tensor(np.random.default_rng(16).integers(
         0, 625, size=5000).astype(np.int32), device=cuda_device)
     one = decoders.viterbi_fast(a, bfull, pi, row[None, :])[0]
