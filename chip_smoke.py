@@ -49,7 +49,11 @@ power limit):
    of a simulated 320 kb block at each model, each against its plain
    version on the card, bit for bit: K6's max-plus operators and their
    offsets, the entry scan's omegas, and K3's forward over the chunk
-   windows, its entry map, the chain and its backtrack;
+   windows, its entry map, the chain and its backtrack; then K1 and K5 at
+   M=36, the introgression model's 3x3 width, in f64 on tokens simulated
+   from it (K1 on the CLI's bucket shape, K5 on a 320 kb block's 625
+   chunks of 512 columns), each against its f64 plain version at rtol
+   1e-10 and timed beside its bound;
 3. the value-only path: ``itrails_tpu_torch.cli.optimize.main --no-grad``
    (Nelder-Mead) at 3x3 on a MAF simulated from the 3x3 model (1.32 M
    columns: 100 blocks of 10 kb and one 320 kb block), at its default
@@ -59,9 +63,27 @@ power limit):
    f64 plain version at rtol 1e-10; then ``--no-grad`` with
    ``settings.method: L-BFGS-B`` (scipy's finite differences) on the card,
    its start point and its one step in each coordinate against the same
-   CLI with ``--device cpu`` (run in a process of its own while the card
-   runs phases 3 to 5, and checked after phase 5): the same points, and
-   every finite difference within 1e-6 nats of the CPU's;
+   CLI with ``--device cpu`` (started in a process of its own, on the MAF
+   simulated before phase 2, so that it overlaps the card's phases 2 and
+   3, stopped after the rows compared, and checked after phase 5): the
+   same points, and every finite difference within 1e-6 nats of the
+   CPU's;
+3b. the introgression value path:
+   ``itrails_tpu_torch.cli.int_optimize.main`` at the full width of
+   ``examples/example_config_int.yaml`` (3x3, M=36, nine parameters free)
+   on a MAF simulated from the 3x3 int model in phase 3's layout: its
+   default (exact gradients, not ported for this model) refused before any
+   launch or artifact; Nelder-Mead with K1's and K5's counters reset just
+   before and read just after (K1 once a bucket, K5 once for the long
+   block an evaluation), the history one row an evaluation, evaluation 0
+   against the f64 plain versions on the card at rtol 1e-10,
+   ``hidden_states.csv`` (36 states, 9 of them V4) and
+   ``observed_states.csv`` (256 tokens); ``--no-grad`` with
+   ``settings.method: L-BFGS-B``; an evaluation's seconds split into build
+   and decode; then (after phase 5) both runs against the same CLI with
+   ``--device cpu``, started in processes of their own before phase 2 as
+   phase 3's: Nelder-Mead's initial simplex at the same points within rtol
+   1e-10, and every finite difference within 1e-6 nats of the CPU's;
 4. the main path, the CLI's default: exact-gradient L-BFGS-B on the same
    MAF, with K2's call counter and K1's and K5's launch counters reset just
    before and read just after (the long block through the chunk route: K5
@@ -159,6 +181,7 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+STARTED = time.perf_counter()  # the run's start, host clock
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W power limit)
 PEAK_F32_FLOPS = 67e12  # outside the tensor cores
@@ -222,6 +245,19 @@ VITERBI_MARGIN = 1e-4
 # (START's r scaled) and the windows x columns simulated from each model
 RUN_RATES = (1.0, 0.1, 0.01)
 RUN_SHAPE = (64, 32_768)
+# phase 3b: examples/example_config_int.yaml, the introgression model at
+# its full width (3x3, M = 36), all nine parameters free
+INT_MU = 1e-8
+INT_CONFIG = {
+    "fixed_parameters": {"mu": INT_MU, "t_out": 1000000},
+    "optimized_parameters": {
+        "N_AB": [50000, 5000, 500000], "N_BC": [40000, 4000, 400000],
+        "N_ABC": [50000, 5000, 500000], "t_1": [240000, 24000, 2400000],
+        "t_2": [40000, 4000, 400000], "t_m": [80000, 8000, 800000],
+        "t_upper": [745069.3855, 74506.9385, 7450693.8556],
+        "r": [1e-8, 1e-9, 1e-7], "m": [0.1, 0.001, 0.99]},
+    "settings": {"species_list": SPECIES, "n_int_AB": 3, "n_int_ABC": 3},
+}
 # the f64 posterior of one block, on the CPU (phase 8's long block)
 POSTERIOR_REF = (
     "import sys\n"
@@ -286,27 +322,50 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def start_params(n_ab, n_abc, **change):
-    """The resolved, mu-scaled parameters of START (with ``change``)."""
-    from itrails_tpu_torch.optim.cases import resolve_times
+def start_params(n_ab, n_abc, introgression=False, **change):
+    """The resolved, mu-scaled parameters of START, or with
+    ``introgression`` of INT_CONFIG's start point (with ``change``)."""
+    from itrails_tpu_torch.optim.cases import (
+        resolve_times,
+        resolve_times_introgression,
+    )
 
-    return resolve_times(frozenset(["t_1"]),
-                         dict(START, n_int_AB=n_ab, n_int_ABC=n_abc, **change))
+    if not introgression:
+        return resolve_times(frozenset(["t_1"]), dict(
+            START, n_int_AB=n_ab, n_int_ABC=n_abc, **change))
+    d = {k: (v[0] if isinstance(v, list) else v)
+         for k, v in INT_CONFIG["optimized_parameters"].items()}
+    d = {k: (v if k == "m" else v / INT_MU if k == "r" else v * INT_MU)
+         for k, v in d.items()}
+    d["t_out"] = INT_CONFIG["fixed_parameters"]["t_out"] * INT_MU
+    return resolve_times_introgression(frozenset(["t_1"]), dict(
+        d, n_int_AB=n_ab, n_int_ABC=n_abc, **change))
 
 
-def build_tables(n_ab, n_abc, dev, d=None):
-    """(a, bfull, pi, b) in f64 on ``dev`` from the port's own builder, at
-    the resolved parameters ``d`` (default: START; floats, or 0-d tensors
+def build_tables(n_ab, n_abc, dev, d=None, introgression=False):
+    """(a, bfull, pi, b), contiguous, in f64 on ``dev`` from the port's own
+    builder, or with ``introgression`` its int builder, at the resolved
+    parameters ``d`` (default: the start point; floats, or 0-d tensors
     that require grad)."""
     from itrails_tpu_torch.core.model import build_model_fn
     from itrails_tpu_torch.data.tokens import aggregation_matrix
     from itrails_tpu_torch.hmm import decoders
+    from itrails_tpu_torch.introgression.builder import (
+        build_model_introgression_fn,
+    )
 
-    d = start_params(n_ab, n_abc) if d is None else d
-    a, b, pi, _, _ = build_model_fn(n_ab, n_abc, device=dev)(
-        d["t_A"], d["t_B"], d["t_C"], d["t_2"], d["t_upper"], d["t_out"],
-        d["N_AB"], d["N_ABC"], d["r"])
-    return a, decoders.emission_table(b, aggregation_matrix()), pi, b
+    d = start_params(n_ab, n_abc, introgression) if d is None else d
+    if introgression:
+        builder, names = build_model_introgression_fn, (
+            "t_A", "t_B", "t_C", "t_2", "t_upper", "t_out", "t_m", "N_AB",
+            "N_BC", "N_ABC", "r", "m")
+    else:
+        builder, names = build_model_fn, (
+            "t_A", "t_B", "t_C", "t_2", "t_upper", "t_out", "N_AB", "N_ABC",
+            "r")
+    a, b, pi, _, _ = builder(n_ab, n_abc, device=dev)(*(d[k] for k in names))
+    bfull = decoders.emission_table(b, aggregation_matrix())
+    return a.contiguous(), bfull.contiguous(), pi.contiguous(), b
 
 
 def k1_bound_ms(m, tokens, size=4):
@@ -1203,30 +1262,92 @@ def phase_viterbi_route_kernels(card, dev, m_label, n_ab, n_abc, seed, reps):
                    "bound_ms": k3_bound, "bound_by": k3_by}}
 
 
-def phase_cli(card, dev, workdir):
-    """The value-only path: the optimize CLI, Nelder-Mead, at 3x3, at its
-    default precision (K1 and K5 in f64).  Returns its launches of K1 and
-    K5 and what later phases reuse; starts the CPU run of
-    :func:`phase_cli_fd` in a process of its own."""
+def write_config(workdir, name, config):
+    """Writes ``config`` to ``<workdir>/<name>.yaml``; returns its path."""
+    import yaml
+
+    path = os.path.join(workdir, f"{name}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+    return path
+
+
+def cli_maf(dev, workdir, name, seed, introgression=False):
+    """A MAF in CLI_LAYOUT (1.32 M columns, one LONG_BLOCK block) simulated
+    from the 3x3 model, or with ``introgression`` the 3x3 int model, at its
+    start point; returns its path, its blocks' tokens and the engine's plan
+    of them (the buckets, the long blocks)."""
+    import torch
+
+    from itrails_tpu_torch.data.maf import maf_tokens
+    from itrails_tpu_torch.data.simulate import simulate_token_batch, write_maf
+    from itrails_tpu_torch.hmm import windows
+
+    n_short, block_len, n_joined = CLI_LAYOUT
+    a, _, pi, b = build_tables(3, 3, dev, introgression=introgression)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sim = simulate_token_batch(a, b, pi, n_short + n_joined, block_len,
+                               gen).cpu().numpy()
+    maf = os.path.join(workdir, f"{name}.maf")
+    write_maf(maf, list(sim[:n_short]) + [sim[n_short:].reshape(-1)], SPECIES)
+    v_lst = maf_tokens(maf, SPECIES)
+    lengths = [len(v) for v in v_lst]
+    buckets, long_idx = windows.plan_buckets(lengths, 1)
+    check(sum(lengths) == (n_short + n_joined) * block_len
+          and len(long_idx) == 1 and lengths[long_idx[0]] == LONG_BLOCK,
+          f"{name}.maf is not the planned layout")
+    return maf, v_lst, buckets, long_idx
+
+
+def optimize_on_card(main, cfg_path, out, sep, n_var, buckets, long_idx,
+                     *flags):
+    """Runs an optimize CLI's ``main`` on the card, K1's and K5's counts
+    set to 0 just before and read just after; checks its history (one
+    finite row an evaluation, more than the initial simplex's n_var + 1),
+    its best model (the best row), and K1 once a bucket and K5 once a long
+    block an evaluation.  Its artifacts are ``<out><sep><name>``.  Returns
+    the history's rows, the best loglik, the run's seconds and the
+    launches of K1 and K5."""
     import torch
     import yaml
 
-    from itrails_tpu_torch.cli.common import prepare_optimize_setup
-    from itrails_tpu_torch.cli.optimize import main
-    from itrails_tpu_torch.data.maf import maf_tokens
-    from itrails_tpu_torch.data.simulate import simulate_token_batch, write_maf
-    from itrails_tpu_torch.hmm import cuda_fwd, cuda_longseq, longseq, windows
-    from itrails_tpu_torch.optim.cases import resolve_times
+    from itrails_tpu_torch.hmm import cuda_fwd, cuda_longseq
 
+    cuda_fwd.forward_fused.launches = 0
+    cuda_longseq.chunk_operators_fused.launches = 0
     t0 = time.perf_counter()
-    n_short, block_len, n_joined = CLI_LAYOUT
-    a, _, pi, b = build_tables(3, 3, dev)
-    gen = torch.Generator(device=dev).manual_seed(11)
-    sim = simulate_token_batch(a, b, pi, n_short + n_joined, block_len,
-                               gen).cpu().numpy()
-    blocks = list(sim[:n_short]) + [sim[n_short:].reshape(-1)]
-    maf = os.path.join(workdir, "sim3x3.maf")
-    write_maf(maf, blocks, SPECIES)
+    main([cfg_path, "--output", out, *flags])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    k1 = cuda_fwd.forward_fused.launches
+    k5 = cuda_longseq.chunk_operators_fused.launches
+    rows = np.loadtxt(f"{out}{sep}optimization_history.csv", delimiter=",",
+                      skiprows=1, ndmin=2)
+    with open(f"{out}{sep}best_model.yaml") as f:
+        best_ll = yaml.safe_load(f)["results"]["log_likelihood"]
+    n_eval = rows.shape[0]
+    check(n_eval > n_var + 1 and rows.shape[1] == n_var + 3,
+          f"{out}: history has the wrong shape")
+    check(np.array_equal(rows[:, 0], np.arange(n_eval)),
+          f"{out}: history is not one row per evaluation")
+    check(np.isfinite(rows).all(), f"{out}: history holds non-finite values")
+    check(np.isfinite(best_ll) and best_ll == rows[:, -2].max(),
+          f"{out}: best-model loglik is not the best history row")
+    check(k1 == n_eval * len(buckets),
+          f"{out}: K1 launched {k1} times for {n_eval} evaluations x "
+          f"{len(buckets)} bucket(s): a long block must launch no K1")
+    check(k5 == n_eval * len(long_idx),
+          f"{out}: K5 launched {k5} times for {n_eval} evaluations x "
+          f"{len(long_idx)} long block(s)")
+    return rows, best_ll, seconds, k1, k5
+
+
+def cli_setup(dev, workdir):
+    """Phase 3's MAF and configs; starts the CPU run that
+    :func:`phase_cli_fd` holds the card to, in a process of its own, which
+    overlaps the card's phases from phase 2 on."""
+    t0 = time.perf_counter()
+    maf, v_lst, buckets, long_idx = cli_maf(dev, workdir, "sim3x3", 11)
     config = {
         "fixed_parameters": {"mu": 1e-8},
         "optimized_parameters": {
@@ -1238,71 +1359,52 @@ def phase_cli(card, dev, workdir):
         "settings": {"input_maf": maf, "species_list": SPECIES,
                      "method": "Nelder-Mead", "n_int_AB": 3, "n_int_ABC": 3},
     }
-    cfg_path = os.path.join(workdir, "config.yaml")
-    with open(cfg_path, "w") as f:
-        yaml.safe_dump(config, f)
-    v_lst = maf_tokens(maf, SPECIES)
-    lengths = [len(v) for v in v_lst]
-    buckets, long_idx = windows.plan_buckets(lengths, 1)
-    check(sum(lengths) >= 1_000_000 and len(long_idx) == 1
-          and lengths[long_idx[0]] == LONG_BLOCK,
-          "phase 3 MAF is not the planned layout")
-    fd = start_cli_fd_cpu(workdir, config)
-    prep_s = time.perf_counter() - t0
+    cfg_path = write_config(workdir, "config", config)
+    n_var = len(config["optimized_parameters"])
+    fd = {"config": write_config(workdir, "config_fd", dict(
+        config, settings=dict(config["settings"], method="L-BFGS-B")))}
+    fd["cpu"] = start_cli_cpu(workdir, "itrails_tpu_torch.cli.optimize", ".",
+                              fd["config"], "fd", n_var + 1, "--no-grad")
+    return {"maf": maf, "v_lst": v_lst, "buckets": buckets,
+            "long_idx": long_idx, "config": config, "cfg_path": cfg_path,
+            "fd": fd, "prep_s": time.perf_counter() - t0}
 
+
+def phase_cli(card, dev, workdir, setup):
+    """The value-only path: the optimize CLI, Nelder-Mead, at 3x3, at its
+    default precision (K1 and K5 in f64), on :func:`cli_setup`'s MAF.
+    Returns its launches of K1 and K5 and what later phases reuse."""
+    from itrails_tpu_torch.cli.common import prepare_optimize_setup
+    from itrails_tpu_torch.cli.optimize import main
+    from itrails_tpu_torch.hmm import cuda_fwd, longseq
+    from itrails_tpu_torch.optim.cases import resolve_times
+    from itrails_tpu_torch.optim.optimizer import LoglikEngine
+
+    config, v_lst = setup["config"], setup["v_lst"]
+    buckets, long_idx = setup["buckets"], setup["long_idx"]
+    n_var = len(config["optimized_parameters"])
     out = os.path.join(workdir, "run", "sim")
-    cuda_fwd.forward_fused.launches = 0
-    cuda_longseq.chunk_operators_fused.launches = 0
-    t0 = time.perf_counter()
-    main([cfg_path, "--output", out, "--no-grad", "--maxiter", "3"])
-    torch.cuda.synchronize()
-    cli_s = time.perf_counter() - t0
-    launches = cuda_fwd.forward_fused.launches
-    k5_launches = cuda_longseq.chunk_operators_fused.launches
-
-    rows = np.loadtxt(out + ".optimization_history.csv", delimiter=",",
-                      skiprows=1, ndmin=2)
-    with open(out + ".best_model.yaml") as f:
-        best = yaml.safe_load(f)
+    rows, best_ll, cli_s, launches, k5_launches = optimize_on_card(
+        main, setup["cfg_path"], out, ".", n_var, buckets, long_idx,
+        "--no-grad", "--maxiter", "3")
     n_eval = rows.shape[0]
-    check(n_eval >= 7 and rows.shape[1] == 6 + 3, "history has the wrong shape")
-    check(np.array_equal(rows[:, 0], np.arange(n_eval)),
-          "history is not one row per evaluation")
-    check(np.isfinite(rows).all(), "history holds non-finite values")
-    best_ll = best["results"]["log_likelihood"]
-    check(np.isfinite(best_ll) and best_ll == rows[:, -2].max(),
-          "best-model loglik is not the best history row")
-    check(launches == n_eval * len(buckets),
-          f"K1 launched {launches} times for {n_eval} evaluations x "
-          f"{len(buckets)} bucket(s): the long block must launch no K1")
-    check(k5_launches == n_eval * len(long_idx),
-          f"K5 launched {k5_launches} times for {n_eval} evaluations x "
-          f"{len(long_idx)} long block(s)")
 
-    # the first evaluation against the plain version in f64 on the card:
+    # the first evaluation against the plain versions in f64 on the card:
     # K1's on the buckets, the operator path's on the long block
-    setup = prepare_optimize_setup(config)
-    d = dict(setup["fixed_dict"], **dict(zip(setup["optim_variables"],
-                                             setup["optim_list"])))
-    d = resolve_times(setup["case"], d)
+    prep = prepare_optimize_setup(config)
+    d = resolve_times(prep["case"], dict(prep["fixed_dict"], **dict(
+        zip(prep["optim_variables"], prep["optim_list"]))))
+    engine = LoglikEngine(v_lst, 3, 3, device=dev)
+    ref = engine.loglik_plain(d)
     a0, bfull0, pi0, _ = build_tables(3, 3, dev, d)
-    a0, bfull0, pi0 = (x.contiguous() for x in (a0, bfull0, pi0))
     a32, b32, p32 = (x.float().contiguous() for x in (a0, bfull0, pi0))
-    ref = 0.0
     per_batch = []  # each route's ms in f64 (the CLI's) and in f32
-    for i_blocks in buckets:
-        tok, _, _ = windows.pack_windows([v_lst[i] for i in i_blocks],
-                                         pad_length_to=128)
-        tok = torch.as_tensor(tok, device=dev)
-        _, ll_ref = cuda_fwd.forward_fused_plain(a0, bfull0, pi0, tok)
-        ref += float(ll_ref.sum())
+    for tok in engine.batches:
         ms = cuda_ms(lambda: cuda_fwd.forward_fused(a0, bfull0, pi0, tok), 1)
         ms32 = cuda_ms(lambda: cuda_fwd.forward_fused(a32, b32, p32, tok), 1)
         per_batch.append(f"K1 {tuple(tok.shape)} {ms:.2f} ms (f32 "
                          f"{ms32:.2f} ms)")
-    for i in long_idx:
-        tok = torch.as_tensor(v_lst[i], device=dev)
-        ref += float(longseq.forward_loglik_long_plain(a0, bfull0, pi0, tok))
+    for tok in engine.long_blocks:
         ms = cuda_ms(lambda: longseq.forward_loglik_long(a0, bfull0, pi0, tok),
                      3)
         ms32 = cuda_ms(lambda: longseq.forward_loglik_long(a32, b32, p32, tok),
@@ -1312,43 +1414,113 @@ def phase_cli(card, dev, workdir):
     rel = abs(rows[0, -2] - ref) / abs(ref)
     check(rel <= VALUE64_RTOL, f"first evaluation off the f64 reference by "
                                f"{rel:.3g} (rtol {VALUE64_RTOL:g})")
-    print(f"{card} | phase 3 optimize CLI 3x3 Nelder-Mead: {sum(lengths)} "
-          f"columns in {len(lengths)} blocks ({len(buckets)} bucket(s) + "
-          f"{len(long_idx)} long block), {n_eval} evaluations in {cli_s:.2f} s "
-          f"({cli_s / n_eval:.3f} s/eval), K1 launches {launches} = "
-          f"{n_eval} x {len(buckets)}, K5 launches {k5_launches} = {n_eval} x "
-          f"{len(long_idx)}, best loglik {best_ll:.6f}, eval 0 vs plain "
-          f"f64 rel err {rel:.3g} (rtol {VALUE64_RTOL:g}); per evaluation, "
-          f"f64 (the CLI's default) and f32: "
-          f"{', '.join(per_batch)}; simulation + MAF {prep_s:.1f} s")
+    print(f"{card} | phase 3 optimize CLI 3x3 Nelder-Mead: "
+          f"{sum(len(v) for v in v_lst)} columns in {len(v_lst)} blocks "
+          f"({len(buckets)} bucket(s) + {len(long_idx)} long block), {n_eval} "
+          f"evaluations in {cli_s:.2f} s ({cli_s / n_eval:.3f} s/eval), K1 "
+          f"launches {launches} = {n_eval} x {len(buckets)}, K5 launches "
+          f"{k5_launches} = {n_eval} x {len(long_idx)}, best loglik "
+          f"{best_ll:.6f}, eval 0 vs plain f64 rel err {rel:.3g} (rtol "
+          f"{VALUE64_RTOL:g}); history digest "
+          f"{history_digest(out + '.optimization_history.csv')}; per "
+          f"evaluation, f64 (the CLI's default) and f32: "
+          f"{', '.join(per_batch)}; simulation + MAF {setup['prep_s']:.1f} s "
+          f"(before phase 2)")
     return launches, k5_launches, {
-        "config": config, "v_lst": v_lst,
-        "per_eval": len(buckets) + len(long_idx), "ref": ref, "maf": maf,
-        "fd": fd}
+        "config": config, "v_lst": v_lst, "engine": engine,
+        "per_eval": len(buckets) + len(long_idx), "ref": ref,
+        "maf": setup["maf"], "fd": setup["fd"]}
 
 
-def start_cli_fd_cpu(workdir, config):
-    """Starts the optimize CLI with ``--no-grad`` and ``settings.method:
-    L-BFGS-B`` (scipy's finite differences) on phase 3's MAF with
-    ``--device cpu``, in a process of its own; returns what
-    :func:`phase_cli_fd` needs."""
-    import yaml
+def start_cli_cpu(workdir, module, sep, cfg_path, tag, n_rows, *flags):
+    """Starts the optimize CLI ``module`` with ``--device cpu --maxiter 1``
+    on ``cfg_path`` in a process of its own, stopped once its history
+    (``<out><sep>optimization_history.csv``) holds ``n_rows`` rows: the
+    rows :func:`cpu_rows` hands on, while later ones would only take the
+    CPU that the card's phases' own references need."""
+    import threading
 
-    config = dict(config, settings=dict(config["settings"], method="L-BFGS-B"))
-    cfg_path = os.path.join(workdir, "config_fd.yaml")
-    with open(cfg_path, "w") as f:
-        yaml.safe_dump(config, f)
-    out = os.path.join(workdir, "run_fd_cpu", "sim")
+    out = os.path.join(workdir, f"{tag}_cpu", "sim")
     os.makedirs(os.path.dirname(out), exist_ok=True)
+    history = f"{out}{sep}optimization_history.csv"
     env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=os.pathsep.join(
         p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
     log = open(out + ".log", "w")
     proc = subprocess.Popen(
-        [sys.executable, "-m", "itrails_tpu_torch.cli.optimize", cfg_path,
-         "--output", out, "--no-grad", "--maxiter", "1", "--device", "cpu"],
+        [sys.executable, "-m", module, cfg_path, "--output", out,
+         "--maxiter", "1", "--device", "cpu", *flags],
         stdout=log, stderr=subprocess.STDOUT, cwd=ROOT, env=env)
     RUNNING.append(proc)
-    return {"config": cfg_path, "out": out, "proc": proc, "log": log}
+    run = {"out": out, "history": history, "proc": proc, "log": log,
+           "stopped": False, "n_rows": n_rows}
+
+    def stop_after_rows():
+        while proc.poll() is None:
+            if (os.path.exists(history)
+                    and len(history_rows(history)) >= n_rows):
+                run["stopped"] = True
+                proc.kill()
+                break
+            time.sleep(0.5)
+        run["ended"] = time.perf_counter() - STARTED
+
+    run["watch"] = threading.Thread(target=stop_after_rows, daemon=True)
+    run["watch"].start()
+    return run
+
+
+def history_rows(path):
+    """The whole rows of a history CSV that another process may still be
+    appending to, as lists of floats."""
+    with open(path) as f:
+        lines = f.read().split("\n")[1:-1]  # the header; a partial row
+    return [[float(x) for x in line.split(",")] for line in lines]
+
+
+def cpu_rows(run, what):
+    """The first rows a CPU run of :func:`start_cli_cpu` was to write, once
+    it has stopped; a run that ended by itself must have exited 0."""
+    rc = run["proc"].wait()
+    run["watch"].join()
+    run["log"].close()
+    rows = history_rows(run["history"])
+    with open(run["out"] + ".log") as f:
+        check((rc == 0 or run["stopped"]) and len(rows) >= run["n_rows"],
+              f"the CPU {what} run exited {rc} after {len(rows)} rows:\n"
+              f"{f.read()[-2000:]}")
+    return np.array(rows[:run["n_rows"]])
+
+
+def held_to_cpu(what, rows, ref, names, differences):
+    """Holds a card run's first rows to a CPU run's (:func:`cpu_rows`): the
+    same points, every loglik within VALUE64_RTOL; with ``differences``
+    (a finite-difference run: the start point, then one step a coordinate)
+    each difference from the start point within FD_ATOL nats of the CPU's.
+    Returns the largest relative error, the largest gap between the
+    differences and a note on each difference."""
+    n = ref.shape[0]
+    check(rows.shape[0] >= n, f"{what} history too short")
+    check(np.array_equal(rows[:n, 1:-2], ref[:, 1:-2]),
+          f"the card's first {n} {what} points differ from the CPU's")
+    rel = np.abs(rows[:n, -2] - ref[:, -2]) / np.abs(ref[:, -2])
+    check(bool((rel <= VALUE64_RTOL).all()),
+          f"the card's first {n} {what} logliks off the CPU f64 ones by {rel}")
+    diffs, worst = [], 0.0
+    for k in range(1, n if differences else 1):  # rows 1.. against row 0
+        moved = np.flatnonzero(rows[k, 1:-2] != rows[0, 1:-2])
+        check(moved.size == 1, f"{what} evaluation {k} is not one "
+                               "coordinate's step")
+        j = int(moved[0])
+        h = rows[k, 1 + j] - rows[0, 1 + j]
+        d_card, d_cpu = rows[k, -2] - rows[0, -2], ref[k, -2] - ref[0, -2]
+        worst = max(worst, abs(d_card - d_cpu))
+        diffs.append(f"{names[j]}: step {h:.3g}, difference card {d_card:.6g} "
+                     f"vs CPU {d_cpu:.6g} nats, slope card "
+                     f"{d_card / h:.8g} vs CPU {d_cpu / h:.8g}")
+    check(worst <= FD_ATOL,
+          f"the card's {what} differences off the CPU's by up to "
+          f"{worst:.3g} nats (atol {FD_ATOL:g}): {'; '.join(diffs)}")
+    return float(rel.max()), worst, diffs
 
 
 def phase_cli_fd(card, dev, workdir, cli):
@@ -1373,51 +1545,300 @@ def phase_cli_fd(card, dev, workdir, cli):
     k1, k5 = (cuda_fwd.forward_fused.launches,
               cuda_longseq.chunk_operators_fused.launches)
     t0 = time.perf_counter()
-    rc = fd["proc"].wait()
+    ref = cpu_rows(fd["cpu"], "finite-difference")
     wait_s = time.perf_counter() - t0
-    fd["log"].close()
-    with open(fd["out"] + ".log") as f:
-        check(rc == 0, f"the CPU finite-difference CLI exited {rc}:\n"
-                       f"{f.read()[-2000:]}")
     rows = np.loadtxt(out + ".optimization_history.csv", delimiter=",",
                       skiprows=1, ndmin=2)
-    ref = np.loadtxt(fd["out"] + ".optimization_history.csv", delimiter=",",
-                     skiprows=1, ndmin=2)
     with open(out + ".optimization_history.csv") as f:
         names = f.readline().strip().split(",")[1:-2]
-    n_eval, n_fd = rows.shape[0], len(names) + 1  # x0 and one step a coordinate
-    check(n_eval >= n_fd and ref.shape[0] >= n_fd,
-          "finite-difference history too short")
+    n_eval = rows.shape[0]
     check(k1 == n_eval * (cli["per_eval"] - 1) and k5 == n_eval,
           f"finite-difference run: K1 launches {k1}, K5 launches {k5} for "
           f"{n_eval} evaluations")
-    check(np.array_equal(rows[:n_fd, 1:-2], ref[:n_fd, 1:-2]),
-          f"the card's first {n_fd} evaluation points differ from the CPU's")
-    rel = np.abs(rows[:n_fd, -2] - ref[:n_fd, -2]) / np.abs(ref[:n_fd, -2])
-    check(bool((rel <= VALUE64_RTOL).all()),
-          f"the card's first {n_fd} logliks off the CPU f64 ones by {rel}")
-    diffs, worst = [], 0.0
-    for k in range(1, n_fd):  # the finite differences of rows 1.. against row 0
-        moved = np.flatnonzero(rows[k, 1:-2] != rows[0, 1:-2])
-        check(moved.size == 1, f"evaluation {k} is not one coordinate's step")
-        j = int(moved[0])
-        h = rows[k, 1 + j] - rows[0, 1 + j]
-        d_card, d_cpu = rows[k, -2] - rows[0, -2], ref[k, -2] - ref[0, -2]
-        worst = max(worst, abs(d_card - d_cpu))
-        diffs.append(f"{names[j]}: step {h:.3g}, difference card {d_card:.6g} "
-                     f"vs CPU {d_cpu:.6g} nats, slope card "
-                     f"{d_card / h:.8g} vs CPU {d_cpu / h:.8g}")
-    check(worst <= FD_ATOL,
-          f"the card's finite differences off the CPU's by up to {worst:.3g} "
-          f"nats (atol {FD_ATOL:g}): {'; '.join(diffs)}")
+    rel, worst, diffs = held_to_cpu("finite-difference", rows, ref, names,
+                                    differences=True)
     print(f"{card} | phase 3 optimize CLI 3x3 --no-grad L-BFGS-B (finite "
           f"differences, f64 value path), --maxiter 1: {n_eval} evaluations "
           f"on the card in {card_s:.2f} s (K1 launches {k1}, K5 launches "
-          f"{k5}); the CPU run (f64, started with phase 3) waited "
-          f"{wait_s:.1f} s after, {ref.shape[0]} evaluations; first {n_fd} "
-          f"evaluation points equal, logliks rel err up to {rel.max():.3g} "
-          f"(rtol {VALUE64_RTOL:g}); finite differences within {worst:.3g} "
-          f"nats of the CPU's (atol {FD_ATOL:g}): {'; '.join(diffs)}")
+          f"{k5}); the CPU run (f64, started before phase 2, stopped after "
+          f"its "
+          f"first {ref.shape[0]} rows, ended {fd['cpu']['ended']:.1f} s into "
+          f"the run) waited {wait_s:.1f} s after; first {ref.shape[0]} "
+          f"evaluation points equal, logliks rel err up to {rel:.3g} (rtol "
+          f"{VALUE64_RTOL:g}); finite differences within {worst:.3g} nats of "
+          f"the CPU's (atol {FD_ATOL:g}): {'; '.join(diffs)}")
+
+
+def history_digest(path):
+    """The first 16 hex digits of the SHA-256 of an optimize history with
+    its time column cut: equal digests across runs mean the runs repeated
+    bit for bit (every digit of every parameter and loglik)."""
+    import hashlib
+
+    with open(path) as f:
+        text = "\n".join(line.rstrip("\n").rsplit(",", 1)[0] for line in f)
+    return hashlib.sha256(text.encode()).hexdigest()[:16]
+
+
+def file_digest(path):
+    """The first 16 hex digits of the SHA-256 of a file's bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()[:16]
+
+
+def phase_int_kernels(card, dev, reps):
+    """K1 and K5 at M = 36, the introgression model's 3x3 width, in f64 (the
+    int CLI's default) on tokens simulated from it: K1 on the CLI's bucket
+    shape (100 x 10,112, PAD tails), K5 on a 320 kb block's columns in
+    chunks of ROUTE_CHUNK; each against its f64 plain version on the card
+    (VALUE64_RTOL), timed beside its bound."""
+    import torch
+
+    from itrails_tpu_torch.data.simulate import simulate_token_batch
+    from itrails_tpu_torch.hmm import cuda_fwd, cuda_longseq, longseq
+
+    a, bfull, pi, b = build_tables(3, 3, dev, introgression=True)
+    m = a.shape[0]
+    check(m == 36, f"the 3x3 introgression model has {m} states, not 36")
+    gen = torch.Generator(device=dev).manual_seed(41)
+    w, t = K1_BUCKET[3], K1_BUCKET[4]
+    # phase 3's layout: w windows for the bucket, the rest joined into the
+    # long block (one sequential simulation of CLI_LAYOUT[1] columns)
+    sim = simulate_token_batch(a, b, pi, w + CLI_LAYOUT[2], CLI_LAYOUT[1], gen)
+    tok = torch.full((w, t), -1, dtype=torch.int32, device=dev)
+    tok[:, :CLI_LAYOUT[1]] = sim[:w]
+    _, ll = cuda_fwd.forward_fused(a, bfull, pi, tok)
+    t0 = time.perf_counter()
+    _, ll_ref = cuda_fwd.forward_fused_plain(a, bfull, pi, tok)
+    torch.cuda.synchronize()
+    k1_plain = 1e3 * (time.perf_counter() - t0)
+    k1_err = float(((ll - ll_ref).abs() / ll_ref.abs().clamp(min=1.0)).max())
+    check(k1_err <= VALUE64_RTOL, f"K1 at M=36 f64: per-window loglik off the "
+                                  f"plain version by {k1_err:.3g}")
+    k1_ms = cuda_ms(lambda: cuda_fwd.forward_fused(a, bfull, pi, tok), reps)
+    k1_bound, k1_by = k1_bound_ms(m, tok, size=8)
+
+    n_g = -(-(LONG_BLOCK - 1) // longseq.ROUTE_CHUNK)
+    block = sim[w:].reshape(-1)
+    check(block.numel() == LONG_BLOCK, "phase 2's M=36 block is not 320 kb")
+    tok_g = longseq.chunk_matrix(block, 0, n_g, longseq.ROUTE_CHUNK)
+    ops, logz = cuda_longseq.chunk_operators_fused(a, bfull, tok_g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ops_ref, logz_ref = cuda_longseq.chunk_operators(
+        a, bfull, tok_g.reshape(-1), longseq.ROUTE_CHUNK)
+    torch.cuda.synchronize()
+    k5_plain = 1e3 * (time.perf_counter() - t0)
+    k5_err = float((ops - ops_ref).abs().max())
+    logz_err = float(((logz - logz_ref).abs()
+                      / logz_ref.abs().clamp(min=1.0)).max())
+    check(k5_err <= VALUE64_RTOL and logz_err <= VALUE64_RTOL,
+          f"K5 at M=36 f64: operators off the plain version by {k5_err:.3g}, "
+          f"log scales by {logz_err:.3g}")
+    k5_ms = cuda_ms(lambda: cuda_longseq.chunk_operators_fused(a, bfull, tok_g),
+                    reps)
+    k5_bound, k5_by = k5_bound_ms(m, tok_g, size=8)
+    print(f"{card} | phase 2 introgression 3x3 M={m} f64 (tokens simulated "
+          f"from the int model): K1 on ({w}, {t}) {k1_ms:.4f} ms (mean of "
+          f"{reps}), bound {k1_bound:.4f} ms ({k1_by}), {k1_bound / k1_ms:.1%} "
+          f"of bound, plain f64 {k1_plain:.1f} ms, per-window ll max rel err "
+          f"{k1_err:.3g}; K5 on C={n_g} L={longseq.ROUTE_CHUNK} {k5_ms:.4f} "
+          f"ms, bound {k5_bound:.4f} ms ({k5_by}), {k5_bound / k5_ms:.1%} of "
+          f"bound, plain f64 {k5_plain:.1f} ms, operators max abs err "
+          f"{k5_err:.3g}, log scales max rel err {logz_err:.3g} (gate "
+          f"{VALUE64_RTOL:g})")
+
+
+def int_cli_setup(dev, workdir):
+    """Phase 3b's MAF, simulated from the 3x3 int model in phase 3's layout,
+    and its configs; starts the two ``--device cpu`` runs that
+    :func:`phase_int_cli_cpu` holds the card to, in processes of their own,
+    which overlap the card's phases from phase 2 on."""
+    t0 = time.perf_counter()
+    maf, v_lst, buckets, long_idx = cli_maf(dev, workdir, "sim_int3x3", 13,
+                                            introgression=True)
+    paths = {}
+    for tag, method in (("nm", "Nelder-Mead"), ("fd", "L-BFGS-B"),
+                        ("default", None)):
+        settings = dict(INT_CONFIG["settings"], input_maf=maf)
+        if method is not None:
+            settings["method"] = method
+        paths[tag] = write_config(workdir, f"config_int_{tag}",
+                                  dict(INT_CONFIG, settings=settings))
+    n_var = len(INT_CONFIG["optimized_parameters"])
+    # the rows compared: the start point and one step a coordinate
+    module = "itrails_tpu_torch.cli.int_optimize"
+    cpu = {"nm": start_cli_cpu(workdir, module, "_", paths["nm"], "int_nm",
+                               n_var + 1),
+           "fd": start_cli_cpu(workdir, module, "_", paths["fd"], "int_fd",
+                               n_var + 1, "--no-grad")}
+    return {"v_lst": v_lst, "buckets": buckets, "long_idx": long_idx,
+            "paths": paths, "cpu": cpu, "prep_s": time.perf_counter() - t0}
+
+
+def phase_int_cli(card, dev, workdir, setup):
+    """The introgression value path: the int optimize CLI at the full width
+    of ``examples/example_config_int.yaml`` (3x3, M = 36, nine parameters
+    free) on a MAF simulated from the 3x3 int model in phase 3's layout
+    (1.32 M columns, one 320 kb block), on the card: its default refused
+    before any launch; Nelder-Mead with K1's and K5's counters reset just
+    before and read just after (K1 once a bucket and K5 once for the long
+    block an evaluation), evaluation 0 against the f64 plain versions on
+    the card, the state maps; scipy's finite-difference L-BFGS-B
+    (``--no-grad``); the seconds of an evaluation split into build and
+    decode.  On :func:`int_cli_setup`'s MAF, whose two CPU runs
+    :func:`phase_int_cli_cpu` checks later."""
+    import csv
+
+    import torch
+
+    from itrails_tpu_torch.cli.common import prepare_optimize_setup
+    from itrails_tpu_torch.cli.int_optimize import main
+    from itrails_tpu_torch.config import load_config
+    from itrails_tpu_torch.hmm import cuda_fwd, cuda_longseq
+    from itrails_tpu_torch.optim.cases import resolve_times_introgression
+    from itrails_tpu_torch.optim.optimizer import LoglikEngine
+
+    t_phase = time.perf_counter()
+    v_lst, paths = setup["v_lst"], setup["paths"]
+    buckets, long_idx = setup["buckets"], setup["long_idx"]
+    n_var = len(INT_CONFIG["optimized_parameters"])
+
+    # the default (no method key): exact gradients, refused before a build
+    cuda_fwd.forward_fused.launches = 0
+    cuda_longseq.chunk_operators_fused.launches = 0
+    refused = os.path.join(workdir, "int_default", "sim")
+    message = ""
+    try:
+        main([paths["default"], "--output", refused])
+        code = 0
+    except SystemExit as exc:  # a message exits with 1
+        code = 1 if isinstance(exc.code, str) else exc.code
+        message = str(exc.code)
+    check(code not in (0, None) and "--no-grad" in message
+          and "settings.method: Nelder-Mead" in message,
+          f"the int CLI's default did not refuse: exit {code}")
+    check(cuda_fwd.forward_fused.launches == 0
+          and cuda_longseq.chunk_operators_fused.launches == 0
+          and not os.path.exists(os.path.dirname(refused)),
+          "the refused int default launched a kernel or wrote an artifact")
+
+    out = os.path.join(workdir, "int_nm", "sim")
+    rows, best_ll, cli_s, k1, k5 = optimize_on_card(
+        main, paths["nm"], out, "_", n_var, buckets, long_idx, "--maxiter",
+        "2")
+    n_eval = rows.shape[0]
+    run_dir = os.path.dirname(out)
+    with open(os.path.join(run_dir, "hidden_states.csv")) as f:
+        hidden = list(csv.reader(f))
+    with open(os.path.join(run_dir, "observed_states.csv")) as f:
+        observed = list(csv.reader(f))
+    check(hidden[0] == ["idx", "hidden"] and len(hidden) == 1 + 36
+          and sum(r[1].startswith("(4,") for r in hidden[1:]) == 9,
+          "hidden_states.csv is not the 36 states with 9 V4 states")
+    check(observed[0] == ["idx", "observed"] and len(observed) == 1 + 256
+          and observed[1] == ["0", "AAAA"], "observed_states.csv is not the "
+                                            "256 unambiguous tokens")
+
+    # evaluation 0 against the f64 plain versions on the card
+    prep = prepare_optimize_setup(load_config(paths["nm"]),
+                                  introgression=True)
+    x = resolve_times_introgression(prep["case"], dict(
+        prep["fixed_dict"], **dict(zip(prep["optim_variables"],
+                                        prep["optim_list"]))))
+    engine = LoglikEngine(v_lst, 3, 3, device=dev, introgression=True)
+    ref = engine.loglik_plain(x)
+    rel = abs(rows[0, -2] - ref) / abs(ref)
+    check(rel <= VALUE64_RTOL, f"int evaluation 0 off the f64 plain versions "
+                               f"by {rel:.3g} (rtol {VALUE64_RTOL:g})")
+
+    out_fd = os.path.join(workdir, "int_fd", "sim")
+    cuda_fwd.forward_fused.launches = 0
+    cuda_longseq.chunk_operators_fused.launches = 0
+    t0 = time.perf_counter()
+    main([paths["fd"], "--output", out_fd, "--no-grad", "--maxiter", "1"])
+    torch.cuda.synchronize()
+    fd_s = time.perf_counter() - t0
+    fd_k1 = cuda_fwd.forward_fused.launches
+    fd_k5 = cuda_longseq.chunk_operators_fused.launches
+    fd_rows = np.loadtxt(out_fd + "_optimization_history.csv", delimiter=",",
+                         skiprows=1, ndmin=2)
+    # the line search also tries points with t_1 < t_m, where the model
+    # does not exist: the engine gives NaN there with no build or launch
+    names = prep["optim_variables"]
+    built = (fd_rows[:, 1 + names.index("t_1")]
+             >= fd_rows[:, 1 + names.index("t_m")])
+    check(bool(np.isnan(fd_rows[~built, -2]).all()),
+          "an int evaluation at t_1 < t_m has a value")
+    check(fd_k1 == int(built.sum()) * len(buckets)
+          and fd_k5 == int(built.sum()) * len(long_idx),
+          f"int finite-difference run: K1 {fd_k1}, K5 {fd_k5} launches for "
+          f"{int(built.sum())} evaluations at t_1 >= t_m (of "
+          f"{fd_rows.shape[0]})")
+
+    # an evaluation's seconds, split into build and decode (host clock,
+    # synchronized), over three evaluations after a first
+    engine.loglik(x)
+    engine.seconds = {k: 0.0 for k in engine.seconds}
+    for _ in range(3):
+        engine.loglik(x)
+    build_s, decode_s = (engine.seconds[k] / 3 for k in ("build", "decode"))
+    print(f"{card} | phase 3b introgression optimize CLI 3x3 (M=36, "
+          f"{n_var} parameters free) Nelder-Mead: "
+          f"{sum(len(v) for v in v_lst)} columns in {len(v_lst)} blocks "
+          f"({len(buckets)} bucket(s) + {len(long_idx)} long block), {n_eval} "
+          f"evaluations in {cli_s:.2f} s ({cli_s / n_eval:.3f} s/eval), K1 "
+          f"launches {k1} = {n_eval} x {len(buckets)}, K5 launches {k5} = "
+          f"{n_eval} x {len(long_idx)}, best loglik {best_ll:.6f}, eval 0 vs "
+          f"the f64 plain versions rel err {rel:.3g} (rtol "
+          f"{VALUE64_RTOL:g}); an evaluation {build_s + decode_s:.4f} s = "
+          f"build {build_s:.4f} + decode {decode_s:.4f} s (mean of 3); the "
+          f"default (exact gradients) refused before any launch (exit "
+          f"{code}); hidden_states.csv 36 rows (9 V4), observed_states.csv "
+          f"256; --no-grad L-BFGS-B {fd_rows.shape[0]} evaluations in "
+          f"{fd_s:.2f} s ({int((~built).sum())} of them at t_1 < t_m, NaN "
+          f"with no build; K1 {fd_k1}, K5 {fd_k5}); history digests: "
+          f"Nelder-Mead {history_digest(out + '_optimization_history.csv')}, "
+          f"finite differences "
+          f"{history_digest(out_fd + '_optimization_history.csv')}; "
+          f"simulation + MAF {setup['prep_s']:.1f} s (before phase 2), "
+          f"the phase {time.perf_counter() - t_phase:.1f} s")
+    return {"cpu": setup["cpu"], "nm": rows, "fd": fd_rows, "names": names}
+
+
+def phase_int_cli_cpu(card, state):
+    """Phase 3b's two runs against the same CLI with ``--device cpu``
+    (started before phase 2): Nelder-Mead's initial simplex (the start
+    point and one step a coordinate) at the same points within
+    VALUE64_RTOL, and finite-difference L-BFGS-B's start point and one step
+    a coordinate at the same points within VALUE64_RTOL, every difference
+    within FD_ATOL nats of the CPU's."""
+    waits, refs = {}, {}
+    for tag, run in state["cpu"].items():
+        t0 = time.perf_counter()
+        refs[tag] = cpu_rows(run, f"int {tag}")
+        waits[tag] = time.perf_counter() - t0
+    nm_rel, _, _ = held_to_cpu("int Nelder-Mead", state["nm"], refs["nm"],
+                               state["names"], differences=False)
+    fd_rel, worst, _ = held_to_cpu("int finite-difference", state["fd"],
+                                   refs["fd"], state["names"],
+                                   differences=True)
+    n = refs["nm"].shape[0]
+    print(f"{card} | phase 3b introgression CLI against --device cpu (f64, "
+          f"started before phase 2, each stopped after its first {n} rows, "
+          f"ended {state['cpu']['nm']['ended']:.1f} / "
+          f"{state['cpu']['fd']['ended']:.1f} s into the run, waited "
+          f"{waits['nm']:.1f} / {waits['fd']:.1f} s after): Nelder-Mead's "
+          f"first {n} evaluations at the same points, logliks rel err up to "
+          f"{nm_rel:.3g} (rtol {VALUE64_RTOL:g}); finite-difference "
+          f"L-BFGS-B's first {n} points equal, logliks rel err up to "
+          f"{fd_rel:.3g}, differences within {worst:.3g} nats of the CPU's "
+          f"(atol {FD_ATOL:g})")
 
 
 def phase_cli_grad(card, dev, workdir, cli):
@@ -1431,7 +1852,6 @@ def phase_cli_grad(card, dev, workdir, cli):
     from itrails_tpu_torch.cli.optimize import main
     from itrails_tpu_torch.hmm import cuda_fwd, cuda_grad, cuda_longseq, longseq
     from itrails_tpu_torch.optim.cases import resolve_times
-    from itrails_tpu_torch.optim.optimizer import LoglikEngine
 
     config = dict(cli["config"])
     config["settings"] = {k: v for k, v in config["settings"].items()
@@ -1500,7 +1920,7 @@ def phase_cli_grad(card, dev, workdir, cli):
     # alone against their plain versions on the card
     setup = prepare_optimize_setup(config)
     names, x0 = setup["optim_variables"], np.asarray(setup["optim_list"])
-    engine = LoglikEngine(cli["v_lst"], 3, 3, device=dev)
+    engine = cli["engine"]
     ll_k2, g_k2 = engine.loglik_and_grad_fn(
         names, setup["fixed_dict"], setup["case"], resolve_times)(x0)
     rel_again = abs(ll_k2 - rows[0, -2]) / abs(rows[0, -2])
@@ -1529,8 +1949,10 @@ def phase_cli_grad(card, dev, workdir, cli):
               f"the {tuple(tok.shape)} batch off the plain version: "
               f"loglik {b_rel:.3g}, {grad_note(errs, medians)}")
         if tok.dim() == 1:  # the whole sum holds the one-window walk
+            walk = [time.perf_counter() - STARTED]
             _, grads_p = cuda_grad.loglik_and_grads_plain(
                 *(x.to(cpu) for x in tables), tok.to(cpu)[None])
+            walk.append(time.perf_counter() - STARTED)
         for acc, g in zip(sums, grads_p):
             acc += g.to(dev)
         ms = cuda_ms(lambda: route(*tables32, tok), 1)
@@ -1554,8 +1976,10 @@ def phase_cli_grad(card, dev, workdir, cli):
           f"(rtol 1e-6), gradient rel err per parameter "
           f"{', '.join(f'{e:.2g}' for e in g_rel)} (rtol 2e-3, against the "
           f"plain f64 version on every batch, the long block walked as one "
-          f"window on the CPU, {plain_s:.1f} s); per evaluation: "
-          f"{'; '.join(per_batch)}")
+          f"window on the CPU, {plain_s:.1f} s, the walk from "
+          f"{walk[0]:.1f} to {walk[1]:.1f} s into the run); history digest "
+          f"{history_digest(out + '.optimization_history.csv')}; per "
+          f"evaluation: {'; '.join(per_batch)}")
     return calls, k5_launches, out + ".best_model.yaml"
 
 
@@ -2022,7 +2446,8 @@ def phase_posterior_cli(card, dev, workdir, cli, best_yaml):
           f"block's one-window reference on the CPU, waited {ref_wait_s:.1f} s "
           f"after the CLI); per batch alone: {'; '.join(per_batch)}; CSV "
           f"{os.path.getsize(path)} bytes, header and {n_lines} rows checked, "
-          f"{len(samples)} sampled rows equal to the card's f64 values")
+          f"{len(samples)} sampled rows equal to the card's f64 values; CSV "
+          f"digest {file_digest(path)}")
     return launches, k5_launches, rows[long_blocks[0]]
 
 
@@ -2718,41 +3143,75 @@ def main():
 def run_phases(card, dev, t_start):
     import torch
 
+    seconds, last = {}, [time.perf_counter()]
+
+    def mark(name):  # the host seconds since the previous mark
+        now = time.perf_counter()
+        seconds[name] = now - last[0]
+        last[0] = now
+
     phase_build(card)
     rows_sass(card)
-    k1 = [phase_k1(card, dev, *shape, seed=seed, reps=10)
-          for seed, shape in enumerate(K1_SHAPES)]
-    phase_k1(card, dev, *K1_BUCKET, seed=len(K1_SHAPES), reps=10)
-    k2 = [phase_k2(card, dev, *shape, seed=seed, reps=10, k1_ms=rec["ms"])
-          for seed, (shape, rec) in enumerate(zip(K1_SHAPES, k1))]
-    for seed, (label, n_ab, n_abc, _, _) in enumerate(K1_SHAPES):
-        phase_k2_chunks(card, dev, label, n_ab, n_abc, seed=20 + seed, reps=10)
-    for seed, shape in enumerate(K1_SHAPES):
-        phase_k3(card, dev, *shape, seed=seed, reps=10)
-    phase_k3(card, dev, "3x3", 3, 3, *TIE_SHAPE, seed=5, reps=2, tie=True)
-    k4 = [phase_k4(card, dev, *shape, seed=seed, reps=10)
-          for seed, shape in enumerate(K1_SHAPES)]
-    phase_k4_run_lengths(card, dev)
-    k5 = [phase_k5(card, dev, label, n_ab, n_abc, seed=seed, reps=10)
-          for seed, (label, n_ab, n_abc, _, _) in enumerate(K1_SHAPES)]
-    route_k = [phase_viterbi_route_kernels(card, dev, label, n_ab, n_abc,
-                                           seed=30 + seed, reps=10)
-               for seed, (label, n_ab, n_abc, _, _) in enumerate(K1_SHAPES)]
+    mark("1")
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
-        k1_launches, _, cli = phase_cli(card, dev, work)
+        # the MAFs of phases 3 and 3b; their CPU runs overlap phases 2-3b
+        cli_start = cli_setup(dev, work)
+        int_start = int_cli_setup(dev, work)
+        mark("3 and 3b set-up")
+        k1 = [phase_k1(card, dev, *shape, seed=seed, reps=10)
+              for seed, shape in enumerate(K1_SHAPES)]
+        phase_k1(card, dev, *K1_BUCKET, seed=len(K1_SHAPES), reps=10)
+        k2 = [phase_k2(card, dev, *shape, seed=seed, reps=10, k1_ms=rec["ms"])
+              for seed, (shape, rec) in enumerate(zip(K1_SHAPES, k1))]
+        for seed, (label, n_ab, n_abc, _, _) in enumerate(K1_SHAPES):
+            phase_k2_chunks(card, dev, label, n_ab, n_abc, seed=20 + seed,
+                            reps=10)
+        for seed, shape in enumerate(K1_SHAPES):
+            phase_k3(card, dev, *shape, seed=seed, reps=10)
+        phase_k3(card, dev, "3x3", 3, 3, *TIE_SHAPE, seed=5, reps=2, tie=True)
+        k4 = [phase_k4(card, dev, *shape, seed=seed, reps=10)
+              for seed, shape in enumerate(K1_SHAPES)]
+        phase_k4_run_lengths(card, dev)
+        k5 = [phase_k5(card, dev, label, n_ab, n_abc, seed=seed, reps=10)
+              for seed, (label, n_ab, n_abc, _, _) in enumerate(K1_SHAPES)]
+        route_k = [phase_viterbi_route_kernels(card, dev, label, n_ab, n_abc,
+                                               seed=30 + seed, reps=10)
+                   for seed, (label, n_ab, n_abc, _, _)
+                   in enumerate(K1_SHAPES)]
+        mark("2")
+        phase_int_kernels(card, dev, reps=10)
+        mark("2 at M=36")
+        k1_launches, _, cli = phase_cli(card, dev, work, cli_start)
+        mark("3")
+        int_cli = phase_int_cli(card, dev, work, int_start)
+        mark("3b")
         k2_calls, _, best_yaml = phase_cli_grad(card, dev, work, cli)
+        mark("4")
         phase_genome(card, dev)
-        phase_cli_fd(card, dev, work, cli)  # its CPU run started in phase 3
+        mark("5")
+        phase_cli_fd(card, dev, work, cli)  # its CPU run started before 2
+        phase_int_cli_cpu(card, int_cli)  # its CPU runs started before 2
+        mark("3 and 3b against the CPU")
         route_launches = phase_viterbi_cli(card, dev, work, cli, best_yaml)
+        mark("6")
         phase_segmented(card, dev, cli, best_yaml)
+        mark("7")
         k4_launches, k5_post_launches, long_rows = phase_posterior_cli(
             card, dev, work, cli, best_yaml)
+        mark("8")
         phase_posterior_groups(card, dev, cli, best_yaml, long_rows)
+        mark("9")
         phase_long_value(card, dev, cli)
+        mark("10")
         phase_long_grad(card, dev, cli)
+        mark("11")
         phase_long_posterior(card, dev, cli)
+        mark("12")
         phase_long_viterbi(card, dev, cli)
+        mark("13")
+    print(f"{card} | seconds by phase (host clock): "
+          + ", ".join(f"{name} {t:.1f}" for name, t in seconds.items()))
     print(f"{card} | all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     # each record at the genome-scale 3x3 shape of phase 2 (K1, K4 and K5

@@ -201,14 +201,26 @@ def _classify(name, fixed, optimized):
     return None
 
 
-def prepare_optimize_setup(config):
+def prepare_optimize_setup(config, introgression=False):
     """Parse + validate an optimize config; returns a dict with
     optim_variables/optim_list/bounds_list (mu-scaled), fixed_dict
     (mu-scaled), case, and de-scaled dicts for the YAML artifacts.
+
+    With ``introgression`` (``itrails_tpu/cli/common.py:244``) the model
+    also needs ``N_BC``, ``t_m`` and ``m``, and a proportional ``t_m`` is
+    refused.  NOTE (deviation, as in the JAX package): the reference's int
+    workflows multiply the admixture proportion ``m`` by mu like a time
+    parameter (workflow_int_optimize.py:372-390), which silently scales a
+    dimensionless probability by ~1e-8; here ``m`` is used as given.
     """
     fixed = config["fixed_parameters"]
     optimized = config["optimized_parameters"]
     settings = config["settings"]
+    if introgression and settings.get("proportional"):
+        raise ValueError(
+            "Proportional t_m is currently not supported in the optimization "
+            "workflow. Please provide t_m as an absolute value in generations."
+        )
     mu = float(fixed["mu"])
     n_int_AB = settings["n_int_AB"]
     n_int_ABC = settings["n_int_ABC"]
@@ -249,7 +261,11 @@ def prepare_optimize_setup(config):
             f"combinations in the documentation."
         )
 
-    required = ("t_2", "N_ABC", "N_AB", "r")
+    required = (
+        ("t_2", "N_ABC", "N_AB", "N_BC", "r", "t_m", "m")
+        if introgression
+        else ("t_2", "N_ABC", "N_AB", "r")
+    )
     for name in required:
         if take(name) is None:
             raise ValueError(
@@ -318,12 +334,21 @@ def prepare_optimize_setup(config):
     if "t_out" in fixed:
         fixed_dict["t_out"] = float(fixed["t_out"])
 
-    # validation + mu scaling (reference workflow_optimize.py:368-405)
+    # validation + mu scaling (reference workflow_optimize.py:368-405);
+    # 'm' is a dimensionless proportion and is not scaled (see NOTE above)
     def scale(name, v):
-        return v / mu if name == "r" else v * mu
+        if name == "r":
+            return v / mu
+        if name == "m":
+            return v
+        return v * mu
 
     def descale(name, v):
-        return v * mu if name == "r" else v / mu
+        if name == "r":
+            return v * mu
+        if name == "m":
+            return v
+        return v / mu
 
     for i, name in enumerate(optim_variables):
         start = optim_list[i]

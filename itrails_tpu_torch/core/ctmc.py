@@ -39,7 +39,7 @@ from itrails_tpu_torch.core.statespace import (
     state_space,
 )
 
-__all__ = ["JointMatrixFn"]
+__all__ = ["AbcStage", "JointMatrixFn"]
 
 
 # finer steps around 64-96: at 7x7 the 73-88-state supports are 90% of
@@ -328,13 +328,13 @@ def _rate_matrix(coal_pattern, rho_pattern, coal, rho):
     return q - torch.diag(q.sum(dim=1))
 
 
-class JointMatrixFn:
-    """``rates -> (M, M)`` joint probability matrix over (left, right)
-    hidden gene-tree states for one plan, on one device.
-
-    Rows and columns follow ``plan.hidden_states``; rows sum to the
-    state's stationary mass (reference get_trans_emiss.py:159-168 consumes
-    it the same way)."""
+class AbcStage:
+    """The deep (ABC) epoch and the final interval of one plan, on one
+    device: per-initial-key probability vectors ``pi_abc`` of shape
+    (len(plan.abc_init_from_ab), 203) -> the (M, M) joint hidden-state
+    matrix.  Shared by the plain builder (:class:`JointMatrixFn`) and the
+    introgression builder (``introgression/model.py``), as the JAX
+    package shares ``itrails_tpu/core/ctmc.py:375 run_abc_stage``."""
 
     def __init__(self, plan: Plan, dtype=torch.float64, *, device):
         self.plan = plan
@@ -349,16 +349,7 @@ class JointMatrixFn:
             return torch.as_tensor(np.asarray(x, dtype=np.int64),
                                    device=self.device)
 
-        sp1, sp2, sp3 = state_space(1), state_space(2), state_space(3)
-        self._pat = {k: (f(sp.coal_pattern), f(sp.rho_pattern))
-                     for k, sp in ((1, sp1), (2, sp2), (3, sp3))}
-        self._start_1 = sp1.index[(1, 1)]
-        self._combine2 = f(combine_partitions_map(1, 1))  # (15, 2, 2)
-        self._combine3 = f(combine_partitions_map(2, 1))  # (203, 15, 2)
-        self._ab_masks = f(plan.ab_masks)
         self._abc_masks = f(plan.abc_masks)
-        self._ab_steps, _ = _prepare_chain(plan.ab_steps, plan.ab_masks,
-                                           self.device, vanloan=False)
         self._abc_steps, self._vl_classes = _prepare_chain(
             plan.abc_steps, plan.abc_masks, self.device, vanloan=True)
         self._abc_init = ix(plan.abc_init_from_ab)
@@ -372,41 +363,14 @@ class JointMatrixFn:
         self._m = m
         self._entry_flat = ix(plan.entry_row * m + plan.entry_col)
 
-    def __call__(self, *, coal_A, coal_B, coal_C, coal_AB, coal_ABC,
-                 rho_A, rho_B, rho_C, rho_AB, rho_ABC, t_A, t_B, t_C,
-                 cut_AB, cut_ABC):
-        """``cut_AB`` has ``n_int_AB + 1`` finite entries; ``cut_ABC`` has
-        ``n_int_ABC + 1`` entries with the last one unused (infinity in
-        the reference)."""
+    def __call__(self, pi_abc, q_abc, cut_ABC):
+        """``cut_ABC`` has ``n_int_ABC + 1`` entries with the last one
+        unused (infinity in the reference)."""
         plan = self.plan
         kw = {"dtype": self.dtype, "device": self.device}
-        q_a = _rate_matrix(*self._pat[1], coal_A, rho_A)
-        q_b = _rate_matrix(*self._pat[1], coal_B, rho_B)
-        q_c = _rate_matrix(*self._pat[1], coal_C, rho_C)
-        q_ab = _rate_matrix(*self._pat[2], coal_AB, rho_AB)
-        q_abc = _rate_matrix(*self._pat[3], coal_ABC, rho_ABC)
-
-        cut_AB = torch.as_tensor(cut_AB, **kw)
         cut_ABC = torch.as_tensor(cut_ABC, **kw)
-        dt_ab = cut_AB[1:] - cut_AB[:-1]
         dt_abc = cut_ABC[1:] - cut_ABC[:-1]  # last entry unused
 
-        # single-sequence initial chains: start in the "left and right
-        # linked" state (1,1) (reference get_joint_prob_mat.py:101-123)
-        singles = expm_batch(
-            torch.stack([q_a * t_A, q_b * t_B, q_c * t_C])
-        )[:, self._start_1, :]
-        f_a, f_b, f_c = singles[0], singles[1], singles[2]
-        pi_ab = torch.einsum("i,j,mij->m", f_a, f_b, self._combine2)
-
-        # ---- AB epoch ----
-        e_ab = expm_batch(q_ab[None] * dt_ab[:, None, None])
-        p_ab = torch.zeros((plan.ab_n_keys, q_ab.shape[0]), **kw)
-        p_ab[0] = pi_ab
-        p_ab = _run_chain(self._ab_steps, self._ab_masks, p_ab, e_ab)
-
-        # ---- combine with C, run the ABC epoch ----
-        pi_abc = torch.einsum("ki,j,mij->km", p_ab, f_c, self._combine3)
         p_abc = torch.zeros((plan.abc_n_keys, q_abc.shape[0]), **kw)
         p_abc[self._abc_init] = pi_abc
         n_steps = plan.n_int_ABC - 1
@@ -443,3 +407,67 @@ class JointMatrixFn:
         joint = torch.zeros(self._m * self._m, **kw)
         _index_sum(joint, self._entry_flat, entries)
         return joint.view(self._m, self._m)
+
+
+class JointMatrixFn:
+    """``rates -> (M, M)`` joint probability matrix over (left, right)
+    hidden gene-tree states for one plan, on one device.
+
+    Rows and columns follow ``plan.hidden_states``; rows sum to the
+    state's stationary mass (reference get_trans_emiss.py:159-168 consumes
+    it the same way)."""
+
+    def __init__(self, plan: Plan, dtype=torch.float64, *, device):
+        self.plan = plan
+        self.dtype = dtype
+        self.device = torch.device(device)
+
+        def f(x):
+            return torch.as_tensor(np.asarray(x), dtype=dtype,
+                                   device=self.device)
+
+        sp1, sp2, sp3 = state_space(1), state_space(2), state_space(3)
+        self._pat = {k: (f(sp.coal_pattern), f(sp.rho_pattern))
+                     for k, sp in ((1, sp1), (2, sp2), (3, sp3))}
+        self._start_1 = sp1.index[(1, 1)]
+        self._combine2 = f(combine_partitions_map(1, 1))  # (15, 2, 2)
+        self._combine3 = f(combine_partitions_map(2, 1))  # (203, 15, 2)
+        self._ab_masks = f(plan.ab_masks)
+        self._ab_steps, _ = _prepare_chain(plan.ab_steps, plan.ab_masks,
+                                           self.device, vanloan=False)
+        self._abc = AbcStage(plan, dtype, device=self.device)
+
+    def __call__(self, *, coal_A, coal_B, coal_C, coal_AB, coal_ABC,
+                 rho_A, rho_B, rho_C, rho_AB, rho_ABC, t_A, t_B, t_C,
+                 cut_AB, cut_ABC):
+        """``cut_AB`` has ``n_int_AB + 1`` finite entries; ``cut_ABC`` has
+        ``n_int_ABC + 1`` entries with the last one unused (infinity in
+        the reference)."""
+        plan = self.plan
+        kw = {"dtype": self.dtype, "device": self.device}
+        q_a = _rate_matrix(*self._pat[1], coal_A, rho_A)
+        q_b = _rate_matrix(*self._pat[1], coal_B, rho_B)
+        q_c = _rate_matrix(*self._pat[1], coal_C, rho_C)
+        q_ab = _rate_matrix(*self._pat[2], coal_AB, rho_AB)
+        q_abc = _rate_matrix(*self._pat[3], coal_ABC, rho_ABC)
+
+        cut_AB = torch.as_tensor(cut_AB, **kw)
+        dt_ab = cut_AB[1:] - cut_AB[:-1]
+
+        # single-sequence initial chains: start in the "left and right
+        # linked" state (1,1) (reference get_joint_prob_mat.py:101-123)
+        singles = expm_batch(
+            torch.stack([q_a * t_A, q_b * t_B, q_c * t_C])
+        )[:, self._start_1, :]
+        f_a, f_b, f_c = singles[0], singles[1], singles[2]
+        pi_ab = torch.einsum("i,j,mij->m", f_a, f_b, self._combine2)
+
+        # ---- AB epoch ----
+        e_ab = expm_batch(q_ab[None] * dt_ab[:, None, None])
+        p_ab = torch.zeros((plan.ab_n_keys, q_ab.shape[0]), **kw)
+        p_ab[0] = pi_ab
+        p_ab = _run_chain(self._ab_steps, self._ab_masks, p_ab, e_ab)
+
+        # ---- combine with C, run the ABC epoch and the final interval ----
+        pi_abc = torch.einsum("ki,j,mij->km", p_ab, f_c, self._combine3)
+        return self._abc(pi_abc, q_abc, cut_ABC)

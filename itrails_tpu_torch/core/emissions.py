@@ -31,6 +31,7 @@ __all__ = [
     "coal_tensor_single",
     "coal_tensor_double",
     "EmissionMatrixFn",
+    "IntrogressionEmissionFn",
 ]
 
 # EQ[i, j] = 3/4 if i == j else -1/4  (the alpha/beta/... coefficients)
@@ -354,20 +355,49 @@ class EmissionMatrixFn:
         self._v0_j1 = ix(np.minimum(v[:, 1] + 1, last))
         self._v0_last = flag(v[:, 1] == last)
 
-        # row order of the concatenated [V1, V2, V3 pairs; V1, V2, V3
-        # doubles; V0] blocks -> sorted hidden-state order
+        # row order of the concatenated blocks -> sorted hidden-state order
+        keys, self.hidden_states = self._states(pairs, doubles, v0_pairs)
+        pos = {k: r for r, k in enumerate(keys)}
+        self._order = ix([pos[h] for h in self.hidden_states])
+
+    def _states(self, pairs, doubles, v0_pairs):
+        """The key of each row of the concatenated [V1, V2, V3 pairs; V1,
+        V2, V3 doubles; V0] blocks, and the sorted hidden states."""
         keys = ([(c, i, j) for c in (1, 2, 3) for i, j in pairs]
                 + [(c, i, i) for c in (1, 2, 3) for i in doubles]
                 + [(0, i, j) for i, j in v0_pairs])
-        pos = {k: r for r, k in enumerate(keys)}
-        self.hidden_states = hidden_state_list(n_int_AB, n_int_ABC)
-        self._order = ix([pos[h] for h in self.hidden_states])
+        return keys, hidden_state_list(self.n_int_AB, self.n_int_ABC)
 
     def __call__(self, *, t_A, t_B, t_C, t_AB, t_upper, t_out, coal_AB,
                  coal_ABC, mu_A, mu_B, mu_C, mu_D, mu_AB, mu_ABC, cut_AB,
                  cut_ABC):
-        cut_AB = torch.as_tensor(cut_AB)
-        cut_ABC = torch.as_tensor(cut_ABC)
+        return self._assemble(self._blocks(
+            t_A=t_A, t_B=t_B, t_C=t_C, t_AB=t_AB, t_upper=t_upper,
+            t_out=t_out, coal_AB=coal_AB, coal_ABC=coal_ABC, mu_A=mu_A,
+            mu_B=mu_B, mu_C=mu_C, mu_D=mu_D, mu_AB=mu_AB, mu_ABC=mu_ABC,
+            cut_AB=torch.as_tensor(cut_AB), cut_ABC=torch.as_tensor(cut_ABC)))
+
+    def _assemble(self, blocks):
+        """The (M, 256) table from the blocks, in hidden-state order."""
+        b = torch.cat(blocks, dim=0)[self._order]
+        return b.reshape(b.shape[0], 256)
+
+    def _v0_times(self, cut_ABC, t_upper):
+        """``(t2, add)`` of the V0 (and V4) pairs' second event in ABC
+        interval j: its length (``t_upper`` for the last) and the outgroup
+        branch's extra ABC time."""
+        last = self.n_int_ABC - 1
+        j, j1 = self._v0_j, self._v0_j1
+        t2 = torch.where(self._v0_last, t_upper, cut_ABC[j1] - cut_ABC[j])
+        add = torch.where(self._v0_last, 0.0,
+                          t_upper + cut_ABC[last] - cut_ABC[j1])
+        return t2, add
+
+    def _blocks(self, *, t_A, t_B, t_C, t_AB, t_upper, t_out, coal_AB,
+                coal_ABC, mu_A, mu_B, mu_C, mu_D, mu_AB, mu_ABC, cut_AB,
+                cut_ABC):
+        """The emission 4-tensors of the V1-V3 and V0 states, as a list of
+        (n, 4, 4, 4, 4) blocks in ``keys`` order."""
         last = self.n_int_ABC - 1
         blocks = []
 
@@ -413,18 +443,66 @@ class EmissionMatrixFn:
                    em2(th_b, th_c, th_a).permute(0, 3, 1, 2, 4)]
 
         # -- V0: first event in the AB epoch interval i, second in ABC j
-        i, j, j1 = self._v0_i, self._v0_j, self._v0_j1
+        i, j = self._v0_i, self._v0_j
         th_a = t_A * mu_A + cut_AB[i] * mu_AB
         th_b = t_B * mu_B + cut_AB[i] * mu_AB
         th_c = t_C * mu_C + cut_ABC[j] * mu_ABC
         th_ab = (t_AB - cut_AB[i + 1]) * mu_AB + cut_ABC[j] * mu_ABC
         t1 = cut_AB[i + 1] - cut_AB[i]
-        t2 = torch.where(self._v0_last, t_upper, cut_ABC[j1] - cut_ABC[j])
-        add = torch.where(self._v0_last, 0.0,
-                          t_upper + cut_ABC[last] - cut_ABC[j1])
+        t2, add = self._v0_times(cut_ABC, t_upper)
         th_d = t_out * mu_D + add * mu_ABC
         blocks.append(_emission_single(th_a, th_b, th_c, th_ab, th_d, t1,
                                        mu_AB, coal_AB, t2, mu_ABC, coal_ABC))
+        return blocks
 
-        b = torch.cat(blocks, dim=0)[self._order]
-        return b.reshape(b.shape[0], 256)
+
+class IntrogressionEmissionFn(EmissionMatrixFn):
+    """``times and rates -> (M, 256)`` emission matrix of the introgression
+    model for one ``(n_int_AB, n_int_ABC)``, on one device (the JAX
+    package's ``itrails_tpu/core/emissions.py:457
+    emission_matrix_introgression``; reference
+    get_emission_prob_mat_introgression, int_get_emission_prob_mat.py:
+    744-1110).
+
+    ``t_B``/``t_C`` run from the present to the *migration* event; the
+    V0-V3 geometries are the plain ones with the effective branch lengths
+    ``t_B + t_m`` and ``t_C + t_m + t_AB``; the V4 (introgressed) states
+    coalesce B with C in the BC epoch on the shifted cutpoint grid
+    ``cut_BC = [0] + (cut_AB[1:] + t_m)`` at rate ``coal_BC``.  One
+    mutation rate ``mu`` scales every branch."""
+
+    def _states(self, pairs, doubles, v0_pairs):
+        """The plain rows, then the V4 block's, on V0's (i, j)."""
+        keys, _ = super()._states(pairs, doubles, v0_pairs)
+        return (keys + [(4, i, j) for i, j in v0_pairs],
+                hidden_state_list(self.n_int_AB, self.n_int_ABC, True))
+
+    def __call__(self, *, t_A, t_B, t_C, t_AB, t_m, t_upper, t_out, coal_AB,
+                 coal_BC, coal_ABC, mu, cut_AB, cut_ABC):
+        cut_AB = torch.as_tensor(cut_AB)
+        cut_ABC = torch.as_tensor(cut_ABC)
+        cut_BC = torch.cat([torch.zeros(1, dtype=cut_AB.dtype,
+                                        device=cut_AB.device),
+                            cut_AB[1:] + t_m])
+
+        # -- V4: B and C coalesce in BC interval i, A joins in ABC j;
+        # branches (x, y, z) = (B, C, A)
+        i, j = self._v0_i, self._v0_j
+        th_a = t_B * mu + cut_BC[i] * mu
+        th_b = t_C * mu + cut_BC[i] * mu
+        th_c = (t_A + t_AB) * mu + cut_ABC[j] * mu
+        th_ab = (t_AB + t_m - cut_BC[i + 1]) * mu + cut_ABC[j] * mu
+        t1 = cut_BC[i + 1] - cut_BC[i]
+        t2, add = self._v0_times(cut_ABC, t_upper)
+        th_d = t_out * mu + add * mu
+        # back to (A, B, C, D) axis order (reference
+        # int_get_emission_prob_mat.py:1098-1100)
+        v4 = _emission_single(th_a, th_b, th_c, th_ab, th_d, t1, mu, coal_BC,
+                              t2, mu, coal_ABC).permute(0, 3, 1, 2, 4)
+
+        blocks = self._blocks(
+            t_A=t_A, t_B=t_B + t_m, t_C=t_C + t_m + t_AB, t_AB=t_AB,
+            t_upper=t_upper, t_out=t_out, coal_AB=coal_AB, coal_ABC=coal_ABC,
+            mu_A=mu, mu_B=mu, mu_C=mu, mu_D=mu, mu_AB=mu, mu_ABC=mu,
+            cut_AB=cut_AB, cut_ABC=cut_ABC)
+        return self._assemble(blocks + [v4])

@@ -47,13 +47,14 @@ START: Key = ((-1, -1, -1), (-1, -1, -1))
 
 def side_omega(side: Side) -> int:
     """Omega class of one locus of a path key (reference
-    helper_omegas.py:25-87)."""
+    helper_omegas.py:25-87; code 4 = introgressed first coalescence B+C in
+    the BC population, omega class 6, int family only)."""
     c, i, j = side
     if c == -1:
         return 7 if (i == j and i != -1) else 0
     if j != -1:
         return 7
-    return {0: 3, 1: 3, 2: 5, 3: 6}[c]
+    return {0: 3, 1: 3, 2: 5, 3: 6, 4: 6}[c]
 
 
 def key_omega(key: Key) -> tuple:
@@ -62,11 +63,11 @@ def key_omega(key: Key) -> tuple:
 
 def _needs_vanloan(side: Side) -> bool:
     """Reference run_markov_chain_ABC.py:412-420: a candidate side routed
-    through the Van Loan branch.  Code 0 carries an earlier-epoch interval
-    index in ``i``, so ``i == j`` is coincidental for it, not a
+    through the Van Loan branch.  Codes 0 and 4 carry an earlier-epoch
+    interval index in ``i``, so ``i == j`` is coincidental for them, not a
     same-interval double coalescence."""
     c, i, j = side
-    return c != 0 and i == j and i != -1
+    return c not in (0, 4) and i == j and i != -1
 
 
 class _MaskRegistry:
@@ -285,18 +286,34 @@ class Plan:
     entry_col: np.ndarray  # (n_entries,) hidden col index
 
 
-def hidden_state_list(n_int_AB: int, n_int_ABC: int) -> list:
+def hidden_state_list(n_int_AB: int, n_int_ABC: int,
+                      introgression: bool = False) -> list:
     """All HMM hidden states, sorted as the reference sorts them
-    (get_trans_emiss.py:150)."""
+    (get_trans_emiss.py:150).  With ``introgression`` the V4 family
+    ``(4, i, j)`` — first coalescence B+C in BC interval ``i`` — is added
+    (reference int_get_emission_prob_mat.py:1054-1105)."""
     states = []
     for i in range(n_int_AB):
         for j in range(n_int_ABC):
             states.append((0, i, j))
+            if introgression:
+                states.append((4, i, j))
     for c in (1, 2, 3):
         for i in range(n_int_ABC):
             for j in range(i, n_int_ABC):
                 states.append((c, i, j))
     return sorted(states)
+
+
+def fate_list(n_int_AB: int) -> list:
+    """Per-locus fates at the second speciation in the introgression model:
+    deep (uncoalesced), V0 at AB interval i, introgressed at BC interval i
+    (reference int_get_tab.py tab_names, rows ordered here as the canonical
+    initial-key order of the int ABC chain)."""
+    fates = [(-1, -1, -1)]
+    fates += [(0, i, -1) for i in range(n_int_AB)]
+    fates += [(4, i, -1) for i in range(n_int_AB)]
+    return fates
 
 
 def _ab_side_candidates(side: Side, step: int):
@@ -399,23 +416,33 @@ def _pack_step(normal, vl) -> StepPlan:
 
 
 @functools.lru_cache(maxsize=None)
-def build_plan(n_int_AB: int, n_int_ABC: int) -> Plan:
+def build_plan(n_int_AB: int, n_int_ABC: int, introgression: bool = False) -> Plan:
     sp2 = state_space(2)
     sp3 = state_space(3)
     events3 = sp3.omega_events
 
-    # ---- AB chain (no Van Loan possible with a single coalescence) ----
-    reg_ab = _MaskRegistry(sp2)
-    ab_index, ab_steps = _trace_chain(
-        n_int_AB,
-        _ab_side_candidates,
-        reg_ab,
-        sp2.omega_events,
-        vanloan=False,
-        first_step_unmasked=True,
-        init_keys=[START],
-    )
-    ab_final_keys = list(ab_index.keys())  # insertion order == index order
+    if introgression:
+        # The AB-epoch fate table is built by introgression.model (four
+        # parallel population chains + migration split); the ABC chain
+        # starts from one key per per-locus fate pair.
+        fates = fate_list(n_int_AB)
+        ab_index = {}
+        ab_steps = []
+        reg_ab = _MaskRegistry(sp2)
+        ab_final_keys = [(l, r) for l in fates for r in fates]
+    else:
+        # ---- AB chain (no Van Loan possible with a single coalescence) ----
+        reg_ab = _MaskRegistry(sp2)
+        ab_index, ab_steps = _trace_chain(
+            n_int_AB,
+            _ab_side_candidates,
+            reg_ab,
+            sp2.omega_events,
+            vanloan=False,
+            first_step_unmasked=True,
+            init_keys=[START],
+        )
+        ab_final_keys = list(ab_index.keys())  # insertion order == index order
 
     # ---- ABC chain: initial keys are the AB stage's final keys ----
     reg_abc = _MaskRegistry(sp3)
@@ -438,7 +465,7 @@ def build_plan(n_int_AB: int, n_int_ABC: int) -> Plan:
     reg_deep = _MaskRegistry(sp3, keep=keep)
     last = n_int_ABC - 1
 
-    hidden = hidden_state_list(n_int_AB, n_int_ABC)
+    hidden = hidden_state_list(n_int_AB, n_int_ABC, introgression)
     hidden_idx = {h: i for i, h in enumerate(hidden)}
 
     entries = {}  # final key -> entry index

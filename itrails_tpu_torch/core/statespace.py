@@ -45,6 +45,9 @@ __all__ = [
     "combine_partitions_map",
     "automorphism_perms",
     "OMEGA_CODE_TO_TOPOLOGY",
+    "PartialSpace",
+    "partial_state_space",
+    "combine_to_abc",
 ]
 
 # Omega code of a locus -> HMM topology code for the *first* coalescence:
@@ -258,6 +261,157 @@ def automorphism_perms(species: int) -> tuple:
             p[i] = sp.index[canonical(relabeled)]
         out.append(p)
     return tuple(out)
+
+
+@dataclass(frozen=True)
+class PartialSpace:
+    """Two-locus ancestral process where each locus carries an arbitrary
+    subset of species (used for the introgression model's missing-lineage
+    chains, where one locus of species B migrated away; reference
+    int_get_joint_prob_mat.py:306-339 hard-codes the 2x5-state variants).
+
+    ``left``/``right`` are tuples of species ids present at each locus.
+    """
+
+    left: tuple
+    right: tuple
+    states: np.ndarray  # (S, n_slots) canonical partition labels
+    index: dict
+    coal_pattern: np.ndarray
+    rho_pattern: np.ndarray
+
+    @property
+    def n_states(self) -> int:
+        return int(self.states.shape[0])
+
+    @property
+    def n_left(self) -> int:
+        return len(self.left)
+
+    def rate_matrix(self, coal: float, rho: float) -> np.ndarray:
+        q = coal * self.coal_pattern + rho * self.rho_pattern
+        np.fill_diagonal(q, 0.0)
+        np.fill_diagonal(q, -q.sum(axis=1))
+        return q
+
+    def coalesced_mask(self, locus: int) -> np.ndarray:
+        """Boolean mask of states whose given locus has any two species'
+        material in one lineage (i.e. the locus' coalescence happened)."""
+        n_l = self.n_left
+        sl = slice(0, n_l) if locus == 0 else slice(n_l, None)
+        out = np.zeros(self.n_states, dtype=bool)
+        for i, row in enumerate(self.states):
+            part = row[sl]
+            out[i] = len(part) > len(set(int(v) for v in part))
+        return out
+
+
+@functools.lru_cache(maxsize=None)
+def partial_state_space(left: tuple, right: tuple) -> PartialSpace:
+    """Enumerate the two-locus ancestral process over an asymmetric slot
+    layout (same transition rules as :func:`state_space`)."""
+    n_l = len(left)
+    slots = n_l + len(right)
+    states = sorted(_partitions(slots))
+    states = np.array(states, dtype=np.int64)
+    index = {tuple(int(v) for v in row): i for i, row in enumerate(states)}
+    n = len(states)
+    coal_pattern = np.zeros((n, n), dtype=np.float64)
+    rho_pattern = np.zeros((n, n), dtype=np.float64)
+    coal_edges, rho_edges = _transitions(states, index, n_l) if len(left) == len(
+        right
+    ) else _transitions_general(states, index, n_l)
+    for s, d in coal_edges:
+        coal_pattern[s, d] = 1.0
+    for s, d in rho_edges:
+        rho_pattern[s, d] = 1.0
+    return PartialSpace(
+        left=left, right=right, states=states, index=index,
+        coal_pattern=coal_pattern, rho_pattern=rho_pattern,
+    )
+
+
+def _transitions_general(states: np.ndarray, index: dict, n_left: int):
+    """Transition enumeration for asymmetric locus layouts (the symmetric
+    :func:`_transitions` assumes ``species`` slots per locus)."""
+    coal_edges = []
+    rho_edges = []
+    for src, state in enumerate(states):
+        l_part = state[:n_left]
+        r_part = state[n_left:]
+        l_labels = set(int(v) for v in l_part)
+        r_labels = set(int(v) for v in r_part)
+        for r_only in sorted(r_labels - l_labels):
+            for l_only in sorted(l_labels - r_labels):
+                merged = np.where(state == r_only, l_only, state)
+                dst = index[canonical(merged)]
+                coal_edges.append((src, dst))
+                rho_edges.append((dst, src))
+        seen = set()
+        for part in (l_part, r_part):
+            distinct = sorted(set(int(v) for v in part))
+            for a, b in itertools.combinations(distinct, 2):
+                if (a, b) in seen:
+                    continue
+                seen.add((a, b))
+                merged = np.where((state == a) | (state == b), min(a, b), state)
+                coal_edges.append((src, index[canonical(merged)]))
+    return coal_edges, rho_edges
+
+
+# ABC slot order: (A_l, B_l, C_l, A_r, B_r, C_r); species ids 0=A, 1=B, 2=C.
+ABC_SLOT = {(0, 0): 0, (0, 1): 1, (0, 2): 2, (1, 0): 3, (1, 1): 4, (1, 2): 5}
+
+
+@functools.lru_cache(maxsize=None)
+def combine_to_abc(*layouts) -> np.ndarray:
+    """General population-merge map into the 203-state ABC space.
+
+    Each layout is ``(kind, spec)``:
+      * ``("full", (s1, ..))``  — a symmetric :func:`state_space` over those
+        species (both loci present), slots mapped to the ABC slots of the
+        named species;
+      * ``("partial", left_species, right_species)`` — a
+        :func:`partial_state_space`.
+
+    Returns a one-hot tensor of shape ``(203, S_1, ..., S_k)`` such that
+    ``pi_ABC = einsum('i,j,..,mij..->m', f_1, f_2, .., C)``.  The layouts'
+    slots must exactly cover the six ABC slots.
+    """
+    spaces = []
+    slot_maps = []  # per layout: list of ABC slot index per local slot
+    for lay in layouts:
+        if lay[0] == "full":
+            specs = lay[1]
+            sp = state_space(len(specs))
+            spaces.append(sp.states)
+            slot_maps.append(
+                [ABC_SLOT[(0, s)] for s in specs] + [ABC_SLOT[(1, s)] for s in specs]
+            )
+        else:
+            _, left, right = lay
+            sp = partial_state_space(tuple(left), tuple(right))
+            spaces.append(sp.states)
+            slot_maps.append(
+                [ABC_SLOT[(0, s)] for s in left] + [ABC_SLOT[(1, s)] for s in right]
+            )
+    covered = sorted(s for m in slot_maps for s in m)
+    if covered != list(range(6)):
+        raise ValueError(f"layouts must cover the 6 ABC slots, got {covered}")
+    abc = state_space(3)
+    shape = (abc.n_states,) + tuple(len(s) for s in spaces)
+    out = np.zeros(shape, dtype=np.float64)
+    for combo in itertools.product(*[range(len(s)) for s in spaces]):
+        merged = np.zeros(6, dtype=np.int64)
+        offset = 0
+        for k, (states, smap) in enumerate(zip(spaces, slot_maps)):
+            row = states[combo[k]]
+            for local, abc_slot in enumerate(smap):
+                merged[abc_slot] = row[local] + offset
+            offset += 1000
+        target = abc.index[canonical(merged)]
+        out[(target,) + combo] = 1.0
+    return out
 
 
 @functools.lru_cache(maxsize=None)

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import math
 
-__all__ = ["ALLOWED_CASES", "resolve_times"]
+__all__ = ["ALLOWED_CASES", "resolve_times", "resolve_times_introgression"]
 
 ALLOWED_CASES = {
     frozenset(["t_A", "t_B", "t_C"]),
@@ -89,3 +89,61 @@ def resolve_times(case: frozenset, d: dict, deep: float | None = None) -> dict:
         d["t_out"] = default_out((mid + d["t_C"]) / 2 + tail)
     return d
 
+
+def resolve_times_introgression(case: frozenset, d: dict,
+                                deep: float | None = None) -> dict:
+    """Introgression variant of the case algebra (reference
+    int_optimizer.py:397-588): ``t_B``/``t_C`` run to the migration event,
+    so e.g. ``t_1`` cases give ``t_B = t_C = t_1 - t_m``."""
+    if case not in ALLOWED_CASES:
+        raise ValueError(f"Invalid combination of time values: {set(case)}")
+    d = dict(d)
+    if deep is None:
+        deep = _deep_time(d)
+    tail = deep + d["t_upper"] + 2.0 * d["N_ABC"]
+    t_m = d["t_m"]
+
+    def default_out(value):
+        return d["t_out"] if "t_out" in d else value
+
+    def abc_out(t_a, t_b, t_c):
+        return ((t_a + (t_b + t_m)) / 2 + d["t_2"]) + (
+            t_c + t_m + d["t_2"]
+        ) / 2 + tail
+
+    if case == frozenset(["t_A", "t_B", "t_C"]):
+        d["t_out"] = default_out(abc_out(d["t_A"], d["t_B"], d["t_C"]))
+    elif case in (
+        frozenset(["t_1", "t_A"]),
+        frozenset(["t_1", "t_B"]),
+        frozenset(["t_1", "t_C"]),
+        frozenset(["t_1"]),
+    ):
+        t1 = d.pop("t_1")
+        if case == frozenset(["t_1", "t_A"]):
+            d["t_B"] = t1 - t_m
+            d["t_C"] = t1 - t_m
+        elif case == frozenset(["t_1", "t_B"]):
+            d["t_A"] = t1
+            d["t_C"] = t1 - t_m
+        elif case == frozenset(["t_1", "t_C"]):
+            d["t_A"] = t1
+            d["t_B"] = t1 - t_m
+        else:
+            d["t_A"] = t1
+            d["t_B"] = t1 - t_m
+            d["t_C"] = t1 - t_m
+        d["t_out"] = default_out(t1 + d["t_2"] + tail)
+    elif case == frozenset(["t_A", "t_B"]):
+        t_c = (d["t_B"] + d["t_A"] + t_m) / 2
+        d["t_C"] = t_c
+        d["t_out"] = default_out(abc_out(d["t_A"], d["t_B"], t_c))
+    elif case == frozenset(["t_A", "t_C"]):
+        t_b = (d["t_C"] + d["t_A"] + t_m) / 2
+        d["t_B"] = t_b
+        d["t_out"] = default_out(abc_out(d["t_A"], t_b, d["t_C"]))
+    elif case == frozenset(["t_B", "t_C"]):
+        t_a = (d["t_C"] + d["t_B"] + t_m) / 2
+        d["t_A"] = t_a
+        d["t_out"] = default_out(abc_out(t_a, d["t_B"], d["t_C"]))
+    return d

@@ -23,6 +23,7 @@ update; every scipy iteration also rewrites the ``--resume`` checkpoint
 
 from __future__ import annotations
 
+import csv
 import os
 import time
 
@@ -34,15 +35,35 @@ from scipy.optimize import minimize
 from itrails_tpu_torch import resolve_device
 from itrails_tpu_torch.config import update_best_model
 from itrails_tpu_torch.core.model import build_model_fn
-from itrails_tpu_torch.data.tokens import N_TOKENS, aggregation_matrix
-from itrails_tpu_torch.hmm import decoders, longseq, windows
+from itrails_tpu_torch.core.schedule import hidden_state_list
+from itrails_tpu_torch.data.tokens import (
+    N_TOKENS,
+    aggregation_matrix,
+    token_strings,
+)
+from itrails_tpu_torch.hmm import cuda_fwd, decoders, longseq, windows
 from itrails_tpu_torch.hmm.grad import LoglikFn
-from itrails_tpu_torch.optim.cases import resolve_times
+from itrails_tpu_torch.introgression.builder import (
+    build_model_introgression_fn,
+)
+from itrails_tpu_torch.optim.cases import (
+    resolve_times,
+    resolve_times_introgression,
+)
 
-__all__ = ["LoglikEngine", "optimizer", "write_list"]
+__all__ = ["INT_GRADIENT_NOT_PORTED", "LoglikEngine", "optimizer",
+           "write_list"]
+
+INT_GRADIENT_NOT_PORTED = (
+    "exact gradients of the introgression model are not ported yet: run "
+    "the value path with --no-grad, or set settings.method: Nelder-Mead in "
+    "the config")
 
 _BUILD_ARGS = ("t_A", "t_B", "t_C", "t_2", "t_upper", "t_out", "N_AB",
                "N_ABC", "r")
+# the introgression builder's (itrails_tpu/optim/optimizer.py:239-244)
+_INT_BUILD_ARGS = ("t_A", "t_B", "t_C", "t_2", "t_upper", "t_out", "t_m",
+                   "N_AB", "N_BC", "N_ABC", "r", "m")
 
 
 def write_list(lst, path):
@@ -79,10 +100,17 @@ class LoglikEngine:
     scipy's finite differences need: their step of 1e-8 moves a
     genome-scale loglik by ~1e-3 nats, below the rounding of an f32
     recursion (~1e-2 nats at 1.3 M columns).  The gradient is decoded in
-    float32 on the card, K2's only scalar, and in ``dtype`` on the CPU."""
+    float32 on the card, K2's only scalar, and in ``dtype`` on the CPU.
+
+    With ``introgression`` the tables come from the introgression builder
+    (``introgression/builder.py``) and the parameters it takes (``t_m``,
+    ``N_BC``, ``m`` besides the plain ones); the decode is the same.  Its
+    exact gradient is not ported yet, so such an engine has the value
+    path only."""
 
     def __init__(self, v_lst, n_int_AB, n_int_ABC, dtype="float64",
-                 device="cuda", long_threshold=windows.LONG_BLOCK_THRESHOLD):
+                 device="cuda", long_threshold=windows.LONG_BLOCK_THRESHOLD,
+                 introgression=False):
         self.device = resolve_device(device)
         # the decodes' dtypes, set here only: the value's, and the
         # gradient's (K2 computes in float32 on the card)
@@ -106,8 +134,15 @@ class LoglikEngine:
                                             device=self.device)
                             for i in long_idx]
         self.n_long = len(long_idx)
-        self._builder = build_model_fn(n_int_AB, n_int_ABC, torch.float64,
-                                       self.device)
+        self.introgression = introgression
+        if introgression:
+            self._builder = build_model_introgression_fn(
+                n_int_AB, n_int_ABC, torch.float64, self.device)
+            self._build_args = _INT_BUILD_ARGS
+        else:
+            self._builder = build_model_fn(n_int_AB, n_int_ABC,
+                                           torch.float64, self.device)
+            self._build_args = _BUILD_ARGS
         self._agg = torch.as_tensor(aggregation_matrix(), dtype=torch.float64,
                                     device=self.device)
         # summed over evaluations; "build_backward" only for gradients
@@ -124,12 +159,23 @@ class LoglikEngine:
     def _tables(self, params: dict, dtype):
         """The decode's ``(a, bfull, pi)`` in ``dtype``, built in f64 from
         the resolved ``params`` (floats or 0-d f64 tensors)."""
-        a, b, pi, _, _ = self._builder(*(params[k] for k in _BUILD_ARGS))
+        a, b, pi, _, _ = self._builder(*(params[k] for k in self._build_args))
         bfull = decoders.emission_table(b, self._agg)
         return tuple(x.to(dtype).contiguous() for x in (a, bfull, pi))
 
     def loglik(self, params: dict) -> float:
-        """Total log-likelihood at the resolved, mu-scaled ``params``."""
+        """Total log-likelihood at the resolved, mu-scaled ``params``.
+
+        The introgression model exists only where the migration lies
+        between the present and the first speciation: at t_1 < t_m the
+        case algebra gives ``t_B`` or ``t_C`` (the times from the present
+        to the migration) below zero, where the build yields tables with
+        negative "probabilities".  There the value is NaN, with no build,
+        so the optimizer's non-finite penalty takes the point (the JAX
+        package's scan gives NaN at most such points and a meaningless
+        finite value at the others)."""
+        if self.introgression and min(params["t_B"], params["t_C"]) < 0:
+            return float("nan")
         t0 = time.perf_counter()
         a, bfull, pi = self._tables(params, self.dtype)
         self._sync()
@@ -143,6 +189,19 @@ class LoglikEngine:
         self.seconds["build"] += t1 - t0
         self.seconds["decode"] += time.perf_counter() - t1
         return value
+
+    def loglik_plain(self, params: dict) -> float:
+        """:meth:`loglik` through the kernels' plain versions, K1's on the
+        buckets and the operator route's on the long blocks, on the same
+        device and tables: what the card's checks hold :meth:`loglik` to."""
+        a, bfull, pi = self._tables(params, self.dtype)
+        total = 0.0
+        for tok in self.batches:
+            total += float(cuda_fwd.forward_fused_plain(a, bfull, pi, tok)[1]
+                           .sum())
+        for tok in self.long_blocks:
+            total += float(longseq.forward_loglik_long_plain(a, bfull, pi, tok))
+        return total
 
     def loglik_and_grad_fn(self, optim_variables, fixed_params, case,
                            resolver):
@@ -159,6 +218,9 @@ class LoglikEngine:
         decode-dtype cast and the build.
         The reference has no gradient path: its L-BFGS-B uses finite
         differences."""
+        if self.introgression:
+            raise NotImplementedError(INT_GRADIENT_NOT_PORTED)
+
         def f(vec_np):
             t0 = time.perf_counter()
             vec = torch.tensor(np.asarray(vec_np, np.float64),
@@ -199,26 +261,41 @@ def optimizer(
     dtype="float64",
     device="cuda",
     use_grad=False,
+    introgression=False,
 ):
-    """Run the outer optimization (reference optimizer.py:586-637) with the
-    scipy ``method``: derivative-free, or with exact gradients
-    (``use_grad``, the JAX package's ``optimizer.py:364-428``).
+    """Run the outer optimization (reference optimizer.py:586-637,
+    int_optimizer.py:589-651) with the scipy ``method``: derivative-free,
+    or with exact gradients (``use_grad``, the JAX package's
+    ``optimizer.py:364-428``; not for ``introgression`` yet).
 
     Returns the scipy result object, ``x`` in natural (mu-scaled)
     coordinates.  ``res_name`` is the output path/prefix;
     ``<res_name>.optimization_history.csv`` and
-    ``<res_name>.best_model.yaml`` follow the reference contract.
+    ``<res_name>.best_model.yaml`` follow the reference contract (the
+    introgression family separates them with '_', as the reference does,
+    and writes ``hidden_states.csv`` and ``observed_states.csv`` to the
+    output directory).
     """
+    if introgression and use_grad:
+        raise NotImplementedError(INT_GRADIENT_NOT_PORTED)
     output_dir, output_prefix = os.path.split(res_name)
+    sep = "_" if introgression else "."
     history = os.path.join(output_dir,
-                           f"{output_prefix}.optimization_history.csv")
-    best_model_yaml = os.path.join(output_dir, f"{output_prefix}.best_model.yaml")
-    state_yaml = os.path.join(output_dir, f"{output_prefix}.optimizer_state.yaml")
+                           f"{output_prefix}{sep}optimization_history.csv")
+    best_model_yaml = os.path.join(output_dir,
+                                   f"{output_prefix}{sep}best_model.yaml")
+    state_yaml = os.path.join(output_dir,
+                              f"{output_prefix}{sep}optimizer_state.yaml")
     if header:
         write_list(["n_eval"] + list(optim_variables) + ["loglik", "time"], history)
+    if introgression:
+        write_state_maps(output_dir, fixed_params["n_int_AB"],
+                         fixed_params["n_int_ABC"])
 
     engine = LoglikEngine(v_lst, fixed_params["n_int_AB"],
-                          fixed_params["n_int_ABC"], dtype=dtype, device=device)
+                          fixed_params["n_int_ABC"], dtype=dtype,
+                          device=device, introgression=introgression)
+    resolver = resolve_times_introgression if introgression else resolve_times
     info = {"n_eval": 0, "t0": time.time()}
 
     def _checkpoint(xk):
@@ -249,16 +326,17 @@ def optimizer(
                                    maxiter, _record, _checkpoint)
 
     # At extreme bound corners (e.g. t_upper/N_ABC ~ 1e3 coalescent units)
-    # the model build overflows to non-finite values; a large finite
-    # penalty keeps simplex steps backtracking instead of propagating NaN
-    # into scipy's termination logic.
+    # the model build overflows to non-finite values, and the introgression
+    # engine's value is NaN at t_1 < t_m (LoglikEngine.loglik); a large
+    # finite penalty keeps simplex steps backtracking instead of
+    # propagating NaN into scipy's termination logic.
     penalty = 1e12
 
     def objective(arg_lst):
         d = dict(fixed_params)
         for name, value in zip(optim_variables, arg_lst):
             d[name] = float(value)
-        ll = engine.loglik(resolve_times(case, d))
+        ll = engine.loglik(resolver(case, d))
         _record(arg_lst, ll)
         return penalty if not np.isfinite(ll) else -ll
 
@@ -270,6 +348,25 @@ def optimizer(
         callback=_checkpoint,
         options={"maxiter": maxiter, "disp": True},
     )
+
+
+def write_state_maps(output_dir, n_int_AB, n_int_ABC):
+    """The introgression family's state maps, ``hidden_states.csv`` and
+    ``observed_states.csv``, in the output directory (the JAX package's
+    ``itrails_tpu/optim/optimizer.py:293-315``; reference
+    int_optimizer.py:551-560 writes them to the working directory at the
+    first evaluation; they depend on no parameter, so they go up front)."""
+    hidden = hidden_state_list(n_int_AB, n_int_ABC, introgression=True)
+    with open(os.path.join(output_dir, "hidden_states.csv"), "w",
+              newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["idx", "hidden"])
+        w.writerows([i, str(h)] for i, h in enumerate(hidden))
+    with open(os.path.join(output_dir, "observed_states.csv"), "w",
+              newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["idx", "observed"])
+        w.writerows(enumerate(token_strings()[:256]))
 
 
 def _minimize_with_grad(engine, optim_variables, optim_list, bounds,

@@ -45,6 +45,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import itrails_tpu_torch.hmm.cuda_posterior\n"
         "import itrails_tpu_torch.hmm.longseq, itrails_tpu_torch.hmm.cuda_longseq\n"
         "import itrails_tpu_torch.hmm.cuda_maxplus\n"
+        "import itrails_tpu_torch.cli.int_optimize\n"
+        "import itrails_tpu_torch.introgression.builder\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'itrails_tpu', 'pandas'))\n"
         "print(','.join(bad))\n"
@@ -66,7 +68,8 @@ def test_port_sources_name_no_jax_import():
 
 
 @pytest.mark.parametrize("entry", ["engine", "builder", "cli", "grad",
-                                   "convert", "viterbi", "posterior"])
+                                   "convert", "viterbi", "posterior",
+                                   "int_engine", "int_builder", "int_cli"])
 def test_entry_points_refuse_cpu_without_being_asked(entry, no_card, tmp_path):
     if entry == "engine":
         from itrails_tpu_torch.optim.optimizer import LoglikEngine
@@ -98,6 +101,23 @@ def test_entry_points_refuse_cpu_without_being_asked(entry, no_card, tmp_path):
 
         def call():
             main([str(tmp_path / "missing.yaml")])
+    elif entry == "int_engine":
+        from itrails_tpu_torch.optim.optimizer import LoglikEngine
+
+        def call():
+            LoglikEngine([np.zeros(10, np.int32)], 1, 2, introgression=True)
+    elif entry == "int_builder":
+        from itrails_tpu_torch.introgression.builder import (
+            build_model_introgression_fn,
+        )
+
+        def call():
+            build_model_introgression_fn(1, 2)
+    elif entry == "int_cli":
+        from itrails_tpu_torch.cli.int_optimize import main
+
+        def call():
+            main([str(tmp_path / "missing.yaml"), "--no-grad"])
     else:
         from itrails_tpu_torch.convert import model_from_numpy
 
@@ -109,16 +129,22 @@ def test_entry_points_refuse_cpu_without_being_asked(entry, no_card, tmp_path):
 
 
 @pytest.mark.parametrize("builder", ["joint", "emission", "cutpoints_ab",
-                                     "cutpoints_abc"])
+                                     "cutpoints_abc", "abc_stage",
+                                     "int_joint", "int_emission"])
 def test_builders_take_no_default_device(builder):
     """The builders under build_model_fn name their device: none of them
     runs on the CPU because the caller left the device out."""
     from itrails_tpu_torch.core import ctmc, cutpoints, emissions
     from itrails_tpu_torch.core.schedule import build_plan
+    from itrails_tpu_torch.introgression import model
 
     calls = {
         "joint": lambda: ctmc.JointMatrixFn(build_plan(1, 2)),
         "emission": lambda: emissions.EmissionMatrixFn(1, 2),
+        "abc_stage": lambda: ctmc.AbcStage(build_plan(1, 2)),
+        "int_joint": lambda: model.IntJointMatrixFn(
+            build_plan(1, 2, introgression=True)),
+        "int_emission": lambda: emissions.IntrogressionEmissionFn(1, 2),
         "cutpoints_ab": lambda: cutpoints.cutpoints_ab(2, 0.8, 1.3),
         "cutpoints_abc": lambda: cutpoints.cutpoints_abc(2, 0.7),
     }
